@@ -1,0 +1,393 @@
+"""Shared payload/header codec (hard-decision path).
+
+Port of ``liquid_usrp_tpu/framing/payload.py``: the static header codec
+(Golay(24,12) + CRC16 + PN scramble) and the runtime-property payload
+decode (constellation selected per frame from a padded table stack, FEC by
+a masked select over the scheme set on static max-size buffers, CRC over a
+per-frame length).  Every function is written batched: a leading candidate
+axis replaces the JAX code's ``vmap``.
+
+Exactness rules carried over from the JAX code:
+
+* nearest-point decisions use ``(xr-tr)**2 + (xi-ti)**2`` in float32 and
+  keep the first minimum on ties, so decisions are bit-identical;
+* every ``lax.dynamic_slice`` clamps its start into ``[0, len - size]``;
+  the port's gathers clamp the same way.
+
+The soft-decision path and the convolutional/RS branches are not ported.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..ops import crc as crc_mod
+from ..ops import fec as fec_mod
+from ..ops import modem as modem_mod
+from ..utils.bits import pack_bits, unpack_bits
+from ..utils.consts import on
+
+__all__ = [
+    "PAYLOAD_FECS", "PAYLOAD_MODS", "EXPANSION", "HEADER_USER_BYTES",
+    "HEADER_DEC_BYTES", "HEADER_ENC_BYTES", "HEADER_MOD", "HEADER_BPS",
+    "HEADER_SYMS", "header_dec_bytes", "header_enc_bytes", "header_syms",
+    "scramble", "encode_header", "decode_header", "header_bits_to_bytes",
+    "encode_payload", "payload_enc_bytes", "check_budget",
+    "required_expansion", "diff_encode_points", "generic_demod_bits",
+    "crc_check_dynamic", "payload_points_used", "payload_evm_mse",
+    "frame_evm_db", "decode_payload_batch",
+]
+
+PAYLOAD_FECS = (
+    fec_mod.FEC_NONE, fec_mod.FEC_REP3, fec_mod.FEC_REP5,
+    fec_mod.FEC_HAMMING74, fec_mod.FEC_HAMMING84, fec_mod.FEC_HAMMING128,
+    fec_mod.FEC_GOLAY2412, fec_mod.FEC_SECDED2216, fec_mod.FEC_SECDED3932,
+    fec_mod.FEC_SECDED7264,
+)
+PAYLOAD_MODS = tuple(range(50))     # every modem scheme id
+EXPANSION = 3                       # worst supported FEC expansion budget
+_MAX_CONST = 256
+_DEMOD_CHUNK = 16
+_IS_DIFF = np.array([modem_mod.is_differential(s) for s in PAYLOAD_MODS])
+_BPS = np.array([modem_mod.bits_per_symbol(s) for s in PAYLOAD_MODS],
+                np.int64)
+
+HEADER_USER_BYTES = 8
+HEADER_FEC = fec_mod.FEC_GOLAY2412
+HEADER_MOD = modem_mod.MOD_BPSK
+HEADER_BPS = 1
+
+
+def header_dec_bytes(user_bytes: int = HEADER_USER_BYTES) -> int:
+    """user bytes + [len u16 | mod | fec0 | fec1 | check] + CRC16."""
+    return user_bytes + 6 + 2
+
+
+def header_enc_bytes(user_bytes: int = HEADER_USER_BYTES) -> int:
+    return fec_mod.encoded_length(HEADER_FEC, header_dec_bytes(user_bytes))
+
+
+def header_syms(user_bytes: int = HEADER_USER_BYTES) -> int:
+    return (header_enc_bytes(user_bytes) * 8 + HEADER_BPS - 1) // HEADER_BPS
+
+
+HEADER_DEC_BYTES = header_dec_bytes()
+HEADER_ENC_BYTES = header_enc_bytes()
+HEADER_SYMS = header_syms()
+
+
+@functools.lru_cache(maxsize=None)
+def _scramble_np(n: int, salt: int) -> np.ndarray:
+    """Deterministic PN byte sequence (same generator as the JAX code)."""
+    rng = np.random.default_rng(0x5C4A3B1E + salt)
+    return rng.integers(0, 256, size=n, dtype=np.uint8)
+
+
+def scramble(data: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """XOR with the PN sequence (involutive)."""
+    return data ^ on(_scramble_np(data.shape[-1], salt), data.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _stacked_tables() -> np.ndarray:
+    tabs = np.full((len(PAYLOAD_MODS), _MAX_CONST), 1e6 + 0j,
+                   dtype=np.complex64)
+    for s in PAYLOAD_MODS:
+        t = modem_mod._table_np(s)
+        tabs[s, : len(t)] = t.astype(np.complex64)
+    return tabs
+
+
+# ---------------------------------------------------------------------------
+# header
+# ---------------------------------------------------------------------------
+
+def encode_header(header: torch.Tensor, payload_len: int, props
+                  ) -> torch.Tensor:
+    """User bytes + [len u16 | mod | fec0 | fec1 | check] -> encoded
+    (scrambled) header bytes."""
+    internal = torch.tensor([
+        (payload_len >> 8) & 0xFF, payload_len & 0xFF,
+        props.mod & 0xFF, props.fec0 & 0xFF, props.fec1 & 0xFF,
+        props.check & 0xFF], dtype=torch.uint8, device=header.device)
+    dec = torch.cat([header.to(torch.uint8), internal])
+    dec = crc_mod.crc_append(crc_mod.CRC_16, dec)
+    return scramble(fec_mod.fec_encode(HEADER_FEC, dec), salt=1)
+
+
+def decode_header(hbytes: torch.Tensor, max_payload: int,
+                  n_fecs: int = len(PAYLOAD_FECS),
+                  user_bytes: int = HEADER_USER_BYTES):
+    """Encoded header bytes ``[..., enc]`` -> (user, plen, mod, f0, f1,
+    check, valid), each with the leading shape.  Fields are clamped into
+    range so they are safe as indices even when ``valid`` is False."""
+    dec = fec_mod.fec_decode(HEADER_FEC, scramble(hbytes, salt=1),
+                             header_dec_bytes(user_bytes))
+    return _header_fields(dec, max_payload, n_fecs, user_bytes)
+
+
+def _header_fields(dec: torch.Tensor, max_payload: int, n_fecs: int,
+                   user_bytes: int = HEADER_USER_BYTES):
+    ok = crc_mod.crc_check(crc_mod.CRC_16, dec)
+    user = dec[..., :user_bytes]
+    i32 = torch.int32
+    plen = (dec[..., user_bytes].to(i32) << 8) | dec[..., user_bytes + 1].to(i32)
+    mod = dec[..., user_bytes + 2].to(i32)
+    f0 = dec[..., user_bytes + 3].to(i32)
+    f1 = dec[..., user_bytes + 4].to(i32)
+    check = dec[..., user_bytes + 5].to(i32)
+    valid = ok & (mod < len(PAYLOAD_MODS)) & (f0 < n_fecs) & \
+        (f1 < n_fecs) & (check <= 2) & (plen <= max_payload)
+    return (user, torch.clamp(plen, 0, max_payload),
+            torch.clamp(mod, 0, len(PAYLOAD_MODS) - 1),
+            torch.clamp(f0, 0, n_fecs - 1), torch.clamp(f1, 0, n_fecs - 1),
+            torch.clamp(check, 0, 2), valid)
+
+
+def header_bits_to_bytes(hbits: torch.Tensor,
+                         user_bytes: int = HEADER_USER_BYTES) -> torch.Tensor:
+    """Demodulated header bit stream ``[..., n]`` -> encoded header bytes."""
+    need = header_enc_bytes(user_bytes) * 8
+    if hbits.shape[-1] < need:
+        hbits = torch.nn.functional.pad(hbits, (0, need - hbits.shape[-1]))
+    return pack_bits(hbits[..., :need])
+
+
+# ---------------------------------------------------------------------------
+# payload: TX
+# ---------------------------------------------------------------------------
+
+def payload_enc_bytes(props, payload_len: int) -> int:
+    n = payload_len + crc_mod.crc_width_bytes(props.check)
+    n = fec_mod.encoded_length(props.fec0, n)
+    return fec_mod.encoded_length(props.fec1, n)
+
+
+def required_expansion(props, payload_len: int) -> int:
+    """Smallest ``expansion`` budget that fits this props combination for
+    any conforming receiver (worst case ``max_payload == payload_len``)."""
+    dec = payload_len + 4
+    need = payload_enc_bytes(props, payload_len)
+    return max(EXPANSION, -(-need // max(dec, 1)))
+
+
+def check_budget(props, payload_len: int, expansion: int = EXPANSION,
+                 rx_max_payload: int = None):
+    """Raise if this mod/FEC combination overflows the RX decode budget of
+    ``expansion * (max_payload + 4)`` bytes (see the JAX docstring)."""
+    if expansion < 1:
+        raise ValueError(f"expansion must be >= 1 (got {expansion})")
+    if rx_max_payload is not None and payload_len > rx_max_payload:
+        raise ValueError(
+            f"{payload_len}-byte payload exceeds the receiver's "
+            f"max_payload={rx_max_payload}")
+    rx_max = payload_len if rx_max_payload is None else rx_max_payload
+    need = payload_enc_bytes(props, payload_len)
+    budget = expansion * (rx_max + 4)
+    if need > budget:
+        raise ValueError(
+            f"fec0={fec_mod.fec_name(props.fec0)} + "
+            f"fec1={fec_mod.fec_name(props.fec1)} encodes a "
+            f"{payload_len}-byte payload to {need} bytes — beyond the "
+            f"expansion={expansion} receive budget of {budget} bytes")
+
+
+def encode_payload(props, payload: torch.Tensor) -> torch.Tensor:
+    """payload -> CRC -> fec0 -> fec1 -> scramble (static length)."""
+    enc = crc_mod.crc_append(props.check, payload.to(torch.uint8))
+    enc = fec_mod.fec_encode(props.fec0, enc)
+    enc = fec_mod.fec_encode(props.fec1, enc)
+    return scramble(enc, salt=2)
+
+
+def diff_encode_points(increments: torch.Tensor) -> torch.Tensor:
+    """TX side of DPSK: prepend the unit reference point to the cumulative
+    rotation of the phase increments."""
+    one = torch.ones((1,), dtype=increments.dtype, device=increments.device)
+    return torch.cat([one, torch.cumprod(increments, dim=0)])
+
+
+# ---------------------------------------------------------------------------
+# payload: RX (batched over a leading candidate axis)
+# ---------------------------------------------------------------------------
+
+def _diff_effective(x: torch.Tensor, mod: torch.Tensor):
+    """(x_eff, src_offset) for points ``[K, n]`` and schemes ``[K]``:
+    differential schemes demap the normalized lag products ``x[k]
+    conj(x[k-1])`` and their data starts after the reference point."""
+    is_diff = on(_IS_DIFF, x.device)[mod.to(torch.int64)]
+    prev = torch.cat([torch.ones_like(x[..., :1]), x[..., :-1]], dim=-1)
+    d = x * torch.conj(prev)
+    d = d / torch.clamp(torch.abs(d), min=1e-12)
+    x_eff = torch.where(is_diff[..., None], d, x)
+    return x_eff, is_diff.to(torch.int64)
+
+
+def _nearest_sym(x: torch.Tensor, table: torch.Tensor):
+    """``(argmin_c, min_c) |x - table[c]|^2`` per point: ``x [K, n]``
+    against per-row tables ``table [K, C]`` -> (int64 ``[K, n]``, float32
+    ``[K, n]``).  Distances are ``(xr-tr)**2 + (xi-ti)**2`` in float32;
+    chunks of 16 entries, ascending, first minimum on ties (``argmin``
+    within a chunk, strict ``<`` across chunks) — the JAX decision rule."""
+    C = table.shape[-1]
+    xr, xi = x.real[..., None], x.imag[..., None]
+    tr, ti = table.real[..., None, :], table.imag[..., None, :]
+    best = torch.full(x.shape, 1e30, dtype=torch.float32, device=x.device)
+    arg = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    for c0 in range(0, C, _DEMOD_CHUNK):
+        c1 = c0 + _DEMOD_CHUNK
+        d = (xr - tr[..., c0:c1]) ** 2 + (xi - ti[..., c0:c1]) ** 2
+        a = torch.argmin(d, dim=-1)
+        m = torch.gather(d, -1, a[..., None])[..., 0]
+        upd = m < best
+        best = torch.where(upd, m, best)
+        arg = torch.where(upd, a + c0, arg)
+    return arg, best
+
+
+def _nearest_point(x: torch.Tensor, table: torch.Tensor):
+    """``(dec, dmin)``: the nearest constellation point (value) per
+    sample, by the same rule as :func:`_nearest_sym`."""
+    sym, dmin = _nearest_sym(x, table)
+    return torch.gather(table, -1, sym), dmin
+
+
+def _bits_from_syms(sym: torch.Tensor, off: torch.Tensor, bps: torch.Tensor,
+                    max_bits: int) -> torch.Tensor:
+    """Symbol stream ``[K, n]`` -> MSB-first bits ``[K, max_bits]`` for
+    per-row ``bps`` and DPSK reference offset ``off`` (0/1).  Bit ``j``
+    reads symbol ``j // bps + off``; symbols past the end read as zero (the
+    JAX form's zero padding)."""
+    n = sym.shape[-1]
+    j = torch.arange(max_bits, device=sym.device)
+    b = bps.to(torch.int64)[..., None]
+    src = j // b + torch.clamp(off.to(torch.int64), 0, 1)[..., None]
+    vals = torch.gather(sym.to(torch.int64), -1, torch.clamp(src, max=n - 1))
+    vals = torch.where(src < n, vals, torch.zeros_like(vals))
+    return ((vals >> (b - 1 - j % b)) & 1).to(torch.uint8)
+
+
+def generic_demod_bits(x: torch.Tensor, mod: torch.Tensor, max_bits: int,
+                       n_table: int = _MAX_CONST):
+    """Demap points ``[K, n]`` with per-row schemes ``[K]`` -> (bits
+    ``[K, max_bits]``, bps ``[K]``).  ``n_table`` truncates the padded
+    table scan (exact whenever the scheme's constellation fits)."""
+    x, off = _diff_effective(x, mod)
+    m = mod.to(torch.int64)
+    table = on(_stacked_tables(), x.device)[m][..., :n_table]
+    sym, _ = _nearest_sym(x, table)
+    bps = on(_BPS, x.device)[m]
+    return _bits_from_syms(sym, off, bps, max_bits), bps
+
+
+def crc_check_dynamic(check: torch.Tensor, buf: torch.Tensor,
+                      plen: torch.Tensor) -> torch.Tensor:
+    """Validate CRC over ``buf[:plen]`` against ``buf[plen:plen+w]`` per
+    row (scheme per row; both CRCs computed, ``check`` selects)."""
+    n = buf.shape[-1]
+    plen = plen.to(torch.int64)
+
+    def one(scheme):
+        w = crc_mod.crc_width_bytes(scheme)
+        got = crc_mod.crc_compute_masked(scheme, buf, plen)
+        start = torch.clamp(plen, 0, n - w)          # dynamic_slice clamp
+        idx = start[..., None] + torch.arange(w, device=buf.device)
+        tail = torch.gather(buf, -1, idx).to(torch.int64)
+        shifts = torch.arange(w - 1, -1, -1, device=buf.device) * 8
+        return got == (tail << shifts).sum(-1)
+
+    ok16 = one(crc_mod.CRC_16)
+    ok32 = one(crc_mod.CRC_32)
+    return torch.where(check == 0, torch.ones_like(ok16),
+                       torch.where(check == 1, ok16, ok32))
+
+
+@functools.lru_cache(maxsize=None)
+def _enc_len_table(fecs: tuple, max_n: int) -> np.ndarray:
+    """[len(fecs), max_n+1] encoded-length lookup."""
+    t = np.zeros((len(fecs), max_n + 1), np.int64)
+    for i, s in enumerate(fecs):
+        for n in range(max_n + 1):
+            t[i, n] = fec_mod.encoded_length(s, n)
+    return t
+
+
+def payload_points_used(fecs: tuple, dec_max: int, enc_max: int,
+                        plen, mod, f0, f1, check) -> torch.Tensor:
+    """Per-row count of constellation points the payload occupies (incl.
+    the DPSK reference point), int64."""
+    dev = plen.device
+    tab = on(_enc_len_table(fecs, enc_max), dev)
+    crc_w = torch.tensor([0, 2, 4], dtype=torch.int64,
+                         device=dev)[check.to(torch.int64)]
+    n1 = torch.clamp(plen.to(torch.int64) + crc_w, 0, dec_max)
+    n2 = tab[f0.to(torch.int64), n1]
+    n3 = tab[f1.to(torch.int64), torch.clamp(n2, 0, enc_max)]
+    m = mod.to(torch.int64)
+    bps = on(_BPS, dev)[m]
+    used = (n3 * 8 + bps - 1) // bps
+    return used + on(_IS_DIFF, dev)[m].to(torch.int64)
+
+
+def payload_evm_mse(points: torch.Tensor, mod, used) -> torch.Tensor:
+    """Per-row payload MSE vs nearest constellation point over the ``used``
+    points (after the DPSK reference point)."""
+    x, off = _diff_effective(points, mod)
+    table = on(_stacked_tables(), points.device)[mod.to(torch.int64)]
+    _, dmin = _nearest_sym(x, table)
+    idx = torch.arange(points.shape[-1], device=points.device)[None, :]
+    mask = (idx >= off[:, None]) & (idx < (used + off)[:, None])
+    tot = torch.where(mask, dmin, torch.zeros_like(dmin)).sum(-1)
+    return tot / torch.clamp(used.to(torch.float32), min=1.0)
+
+
+def frame_evm_db(hevm_db, pay_mse, used, hdr_syms: int = HEADER_SYMS):
+    """Header EVM (dB) combined with the payload MSE, energy-weighted
+    over symbols (the reference's framesyncstats EVM)."""
+    hmse = 10.0 ** (hevm_db / 10.0)
+    u = used.to(torch.float32)
+    tot = (hmse * hdr_syms + pay_mse * u) / (hdr_syms + u)
+    return 10.0 * torch.log10(torch.clamp(tot, min=1e-12))
+
+
+def _fec_batch(scheme_ids: torch.Tensor, bufs: torch.Tensor, out_bytes: int,
+               fecs) -> torch.Tensor:
+    """Batched FEC decode ``bufs [K, in]`` with per-row scheme indices:
+    each scheme decodes the whole batch once and a masked select picks
+    each row's result."""
+    in_bytes = bufs.shape[-1]
+    out = torch.zeros((bufs.shape[0], out_bytes), dtype=torch.uint8,
+                      device=bufs.device)
+    for idx, s in enumerate(fecs):
+        n = out_bytes
+        while fec_mod.encoded_length(s, n) > in_bytes and n > 1:
+            n -= 1
+        dec = fec_mod.fec_decode(s, bufs[:, :fec_mod.encoded_length(s, n)],
+                                 n)
+        if n < out_bytes:
+            dec = torch.nn.functional.pad(dec, (0, out_bytes - n))
+        out = torch.where((scheme_ids == idx)[:, None], dec, out)
+    return out
+
+
+def decode_payload_batch(sync_enc_max: int, dec_max: int, max_payload: int,
+                         points: torch.Tensor, mod, f0, f1, check, plen,
+                         hvalid, fecs=PAYLOAD_FECS):
+    """Batched payload decode for K candidates: ``points [K, n_pts]``,
+    per-row props -> (payload [K, max_payload] uint8, payload_valid [K])."""
+    bps_all = on(_BPS, points.device)[mod.to(torch.int64)]
+    # host-side table-size gate (a device sync): 64 entries cover every
+    # scheme with bps <= 6; entries past 2^bps are padding and never win
+    n_tab = 64 if bool((bps_all <= 6).all()) else _MAX_CONST
+    pbits, _ = generic_demod_bits(points, mod, sync_enc_max * 8, n_tab)
+    enc = scramble(pack_bits(pbits), salt=2)
+    mid = _fec_batch(f1, enc, sync_enc_max, fecs)
+    dec = _fec_batch(f0, mid, dec_max, fecs)
+    pvalid = hvalid & crc_check_dynamic(check, dec, plen)
+    keep = torch.arange(max_payload, device=points.device)[None, :] < \
+        plen[:, None]
+    payload = torch.where(keep, dec[:, :max_payload],
+                          torch.zeros_like(dec[:, :max_payload]))
+    return payload, pvalid

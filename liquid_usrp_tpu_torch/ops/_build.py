@@ -1,0 +1,101 @@
+"""Build and load the package's CUDA kernels.
+
+The sources in ``liquid_usrp_tpu_torch/csrc/`` have a plain C interface;
+``nvcc`` compiles them for Hopper (``sm_90a``) into one shared library under
+``build/kernels/`` at the repository root, named by a hash of the sources
+and flags, and ``ctypes`` loads it.  The build runs at first use, takes
+seconds, and is reused while the sources are unchanged.  A missing
+compiler or a failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["load_library", "build_info"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+_BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # ext, rows, len, tre, tim, ea, n_tmpl, span, n_metric, floors, out,
+    # stream
+    "xcorr_metric_launch": [_VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _VP,
+                            _VP, _VP],
+    # ext, rows, len, lag, span, win, T, thr, floors, n_out, n_seg,
+    # segval, segarg, segcre, segcim, stream
+    "detect_candidates_launch": [_VP, _I, _I, _I, _I, _I, _I, _F, _VP, _I,
+                                 _I, _VP, _VP, _VP, _VP, _VP],
+}
+
+_LIB: list = []
+_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or \
+        "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    if _LIB:
+        return _LIB[0]
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out = _BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    built = not out.exists()
+    if built:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(p) for p in srcs if p.suffix == ".cu"]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _INFO.update(path=str(out), seconds=time.perf_counter() - t0,
+                 built=built, log=log)
+    _LIB.append(lib)
+    return lib
+
+
+def build_info() -> dict:
+    """Where the library is, how long loading (and building) took, and
+    the compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) when this process built it."""
+    return dict(_INFO)

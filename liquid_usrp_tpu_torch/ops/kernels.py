@@ -1,0 +1,272 @@
+"""The detect front-end's hand-written CUDA kernels and their plain versions.
+
+Port of the two kernels of ``liquid_usrp_tpu/ops/pallas_kernels.py`` that
+the multichannel receiver runs:
+
+* **B1** :func:`detect_metric_xcorr_onepass` — the segmented-coherent S0
+  cross-correlation metric (``OfdmSync.use_pallas == 1``), CUDA source
+  ``csrc/xcorr_metric.cu``;
+* **B2** :func:`detect_candidates_onepass` — the fused Schmidl-Cox metric,
+  NMS and per-segment reduction, then a top-k over the segment maxima
+  (``use_pallas == 2``), CUDA source ``csrc/detect_candidates.cu``.
+
+Each wrapper dispatches by the device of its input: a CUDA tensor launches
+the kernel (built on first use by :mod:`._build`) or raises; a CPU tensor
+runs the kernel's plain PyTorch version beside it.  Nothing falls back.
+``launches`` counts kernel launches per wrapper (plain runs do not count).
+
+Inputs carry any leading batch shape ``[..., len]``; each row is one
+extended detect window, as the JAX code vmaps over windows.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import corr
+
+__all__ = ["detect_metric_xcorr_onepass", "detect_metric_xcorr_plain",
+           "detect_candidates_onepass", "detect_candidates_plain",
+           "autocorr_metric", "launches", "reset_launch_counts", "CAND_SEG"]
+
+CAND_SEG = 64           # samples per reduced segment (= topk_peaks' seg)
+
+launches = {"detect_metric_xcorr_onepass": 0,
+            "detect_candidates_onepass": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _check_rows(ext: torch.Tensor) -> torch.Tensor:
+    if not ext.is_complex():
+        raise TypeError(f"expected a complex stream, got {ext.dtype}")
+    return ext.reshape(-1, ext.shape[-1]).to(torch.complex64)
+
+
+def _row_floor(p_sum: torch.Tensor, n: int, span: int,
+               floor_scale: float) -> torch.Tensor:
+    """The silence floor ``floor_scale * span * (mean|x|^2 + 1e-12)`` per
+    row, written as the JAX wrappers write it."""
+    return floor_scale * span * (p_sum / n + 1e-12)
+
+
+def _launch(fn_name: str, ext: torch.Tensor, *args) -> None:
+    from ._build import load_library
+    lib = load_library()
+    with torch.cuda.device(ext.device):
+        stream = torch.cuda.current_stream(ext.device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+
+
+# ---------------------------------------------------------------------------
+# B1: segmented-coherent cross-correlation metric
+# ---------------------------------------------------------------------------
+
+def _garbage_rows(s: int) -> int:
+    return -(-s // 128)
+
+
+def _tree_garbage(L: int) -> int:
+    g = {1: 0}
+    k = 1
+    while 2 * k <= L:
+        g[2 * k] = g[k] + _garbage_rows(k)
+        k *= 2
+    out_g, off = 0, 0
+    for k in sorted(g, reverse=True):
+        if L & k:
+            out_g = max(out_g, g[k] + _garbage_rows(off))
+            off += k
+    return out_g
+
+
+def _xcorr_padded_len(n_metric: int, span: int, n_tmpl: int) -> int:
+    """Length the JAX wrapper zero-pads a short row to (its (8, 128)-tile
+    raster plus slack rows).  It sets the mean in the silence floor, so the
+    port reproduces it; nothing else of the raster is carried over."""
+    rows = -(-n_metric // 1024) * 8
+    slack = _tree_garbage(span) + _garbage_rows(n_tmpl) + 1
+    return (rows + slack) * 128
+
+
+@functools.lru_cache(maxsize=16)
+def _xcorr_consts(tmpl_bytes: bytes, span: int):
+    """(tap re, tap im, segment energies) as float32 host arrays."""
+    tmpl = np.frombuffer(tmpl_bytes, np.complex64)
+    n_seg = len(tmpl) // span
+    ea = np.array([np.sum(np.abs(tmpl[s * span:(s + 1) * span]) ** 2)
+                   for s in range(n_seg)], np.float32)
+    return (np.ascontiguousarray(tmpl.real, np.float32),
+            np.ascontiguousarray(tmpl.imag, np.float32), ea)
+
+
+def detect_metric_xcorr_onepass(ext: torch.Tensor, tmpl: np.ndarray,
+                                span: int, n_metric: int,
+                                floor_scale: float = 1e-4) -> torch.Tensor:
+    """Segmented-coherent cross-correlation metric ``[..., n_metric]``.
+
+    ``tmpl``: the known template (``n_seg * span`` complex host samples).
+    Matches ``ofdm_sync._detect_metric_xcorr`` (time-domain MACs instead
+    of its FFT-domain correlations)."""
+    tmpl = np.ascontiguousarray(tmpl, np.complex64)
+    if len(tmpl) % span:
+        raise ValueError(f"template length {len(tmpl)} is not a multiple "
+                         f"of span {span}")
+    lead = ext.shape[:-1]
+    x = _check_rows(ext)
+    if x.device.type == "cpu":
+        out = detect_metric_xcorr_plain(x, tmpl, span, n_metric, floor_scale)
+        return out.reshape(*lead, n_metric)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    x = x.contiguous()
+    rows, length = x.shape
+    tre, tim, ea = _xcorr_consts(tmpl.tobytes(), span)
+    denom = max(length, _xcorr_padded_len(n_metric, span, len(tmpl)))
+    floors = _row_floor((x.real ** 2 + x.imag ** 2).sum(-1), denom, span,
+                        floor_scale).to(torch.float32).contiguous()
+    out = torch.empty((rows, n_metric), dtype=torch.float32, device=x.device)
+    _launch("xcorr_metric_launch", x, x.data_ptr(), rows, length,
+            tre.ctypes.data_as(ctypes.c_void_p),
+            tim.ctypes.data_as(ctypes.c_void_p),
+            ea.ctypes.data_as(ctypes.c_void_p), len(tmpl), span, n_metric,
+            floors.data_ptr(), out.data_ptr())
+    launches["detect_metric_xcorr_onepass"] += 1
+    return out.reshape(*lead, n_metric)
+
+
+def detect_metric_xcorr_plain(ext: torch.Tensor, tmpl: np.ndarray,
+                              span: int, n_metric: int,
+                              floor_scale: float = 1e-4) -> torch.Tensor:
+    """Plain PyTorch version of B1: a time-domain segmented MAC over
+    ``[rows, len]`` windows, in the JAX kernel's order of operations."""
+    tmpl = np.ascontiguousarray(tmpl, np.complex64)
+    tre, tim, ea = _xcorr_consts(tmpl.tobytes(), span)
+    n_tmpl = len(tmpl)
+    n_seg = n_tmpl // span
+    rows, length = ext.shape
+    need = n_metric + n_tmpl - 1
+    if length < need:
+        ext = torch.cat([ext, torch.zeros((rows, need - length),
+                                          dtype=ext.dtype,
+                                          device=ext.device)], dim=-1)
+    xr, xi = ext.real, ext.imag
+    p = xr * xr + xi * xi
+    denom = max(length, _xcorr_padded_len(n_metric, span, n_tmpl))
+    floor = _row_floor(p[:, :length].sum(-1), denom, span,
+                       floor_scale)[:, None]
+    acc = None
+    for s in range(n_seg):
+        ure = uim = es = None
+        for j in range(span):
+            off = s * span + j
+            a = xr[:, off:off + n_metric]
+            b = xi[:, off:off + n_metric]
+            tr, ti = float(tre[off]), float(tim[off])
+            re_t = tr * a + ti * b          # conj(t) * x
+            im_t = tr * b - ti * a
+            pj = p[:, off:off + n_metric]
+            ure = re_t if ure is None else ure + re_t
+            uim = im_t if uim is None else uim + im_t
+            es = pj if es is None else es + pj
+        r = (ure * ure + uim * uim) / torch.clamp(es * float(ea[s]),
+                                                  min=1e-12)
+        r = torch.where(es > floor, r, torch.zeros_like(r))
+        acc = r if acc is None else acc + r
+    return acc / n_seg
+
+
+# ---------------------------------------------------------------------------
+# B2: fused Schmidl-Cox metric + NMS + segment reduction
+# ---------------------------------------------------------------------------
+
+def _moving_sum(x: torch.Tensor, L: int) -> torch.Tensor:
+    """Windowed sums of length ``L`` along the last axis, from a float64
+    (complex128) cumulative sum, so long streams lose no precision."""
+    wide = torch.complex128 if x.is_complex() else torch.float64
+    cs = torch.cumsum(x.to(wide), dim=-1)
+    cs = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)
+    return (cs[..., L:] - cs[..., :-L]).to(x.dtype)
+
+
+def autocorr_metric(ext: torch.Tensor, lag: int, span: int,
+                    floor_scale: float = 1e-4):
+    """The S0 periodicity (Schmidl-Cox) metric for every offset:
+    ``(metric [..., n_out], c [..., n_out])``, ``n_out = len - span - lag
+    + 1``, with ``c[n] = sum_{i<span} x[n+i] conj(x[n+i+lag])`` and the
+    silence floor gate.  The plain version of ``ofdm_sync._detect_metric``
+    and the first half of B2."""
+    prod = ext[..., :-lag] * torch.conj(ext[..., lag:])
+    c = _moving_sum(prod, span)
+    p = ext.real ** 2 + ext.imag ** 2
+    e1 = _moving_sum(p[..., :-lag], span)
+    e2 = _moving_sum(p[..., lag:], span)
+    metric = (c.real ** 2 + c.imag ** 2) / torch.clamp(e1 * e2, min=1e-12)
+    floor = _row_floor(p.sum(-1), p.shape[-1], span, floor_scale)[..., None]
+    metric = torch.where(torch.minimum(e1, e2) > floor, metric,
+                         torch.zeros_like(metric))
+    return metric, c
+
+
+def detect_candidates_onepass(ext: torch.Tensor, lag: int, span: int,
+                              win: int, T: int, threshold: float, k: int,
+                              floor_scale: float = 1e-4):
+    """Fused S0 detect -> NMS -> top-k: ``(vals, locs, c_at)`` each
+    ``[..., k]`` (``vals > 0`` = detected; ``locs`` int32 offsets into the
+    window; ``c_at`` complex64 lag correlation at ``locs``)."""
+    lead = ext.shape[:-1]
+    x = _check_rows(ext)
+    if x.device.type == "cpu":
+        vals, locs, c_at = detect_candidates_plain(
+            x, lag, span, win, T, threshold, k, floor_scale)
+    elif x.device.type == "cuda":
+        vals, locs, c_at = _detect_candidates_cuda(
+            x.contiguous(), lag, span, win, T, threshold, k, floor_scale)
+    else:
+        raise RuntimeError(f"no kernel for device {x.device}")
+    return (vals.reshape(*lead, k), locs.reshape(*lead, k),
+            c_at.reshape(*lead, k))
+
+
+def _detect_candidates_cuda(x, lag, span, win, T, threshold, k,
+                            floor_scale):
+    rows, length = x.shape
+    n_out = length - span - lag + 1
+    n_seg = -(-n_out // CAND_SEG)
+    floors = _row_floor((x.real ** 2 + x.imag ** 2).sum(-1), length, span,
+                        floor_scale).to(torch.float32).contiguous()
+    dev = x.device
+    segval = torch.empty((rows, n_seg), dtype=torch.float32, device=dev)
+    segarg = torch.empty((rows, n_seg), dtype=torch.int32, device=dev)
+    segcre = torch.empty((rows, n_seg), dtype=torch.float32, device=dev)
+    segcim = torch.empty((rows, n_seg), dtype=torch.float32, device=dev)
+    _launch("detect_candidates_launch", x, x.data_ptr(), rows, length, lag,
+            span, win, T, float(threshold), floors.data_ptr(), n_out, n_seg,
+            segval.data_ptr(), segarg.data_ptr(), segcre.data_ptr(),
+            segcim.data_ptr())
+    launches["detect_candidates_onepass"] += 1
+    # segment-rate second stage, as the JAX wrapper runs lax.top_k
+    vals, seg_idx = torch.topk(segval, k, dim=-1)
+    locs = torch.gather(segarg, -1, seg_idx)
+    c_at = torch.complex(torch.gather(segcre, -1, seg_idx),
+                         torch.gather(segcim, -1, seg_idx))
+    return vals, locs, c_at
+
+
+def detect_candidates_plain(ext: torch.Tensor, lag: int, span: int,
+                            win: int, T: int, threshold: float, k: int,
+                            floor_scale: float = 1e-4):
+    """Plain PyTorch version of B2: ``_find_candidates(_detect_metric())``
+    plus the lag correlation at the chosen offsets."""
+    metric, c = autocorr_metric(ext, lag, span, floor_scale)
+    vals, locs = corr.find_candidates(metric, win, T, threshold, k)
+    idx = torch.clamp(locs.to(torch.int64), 0, c.shape[-1] - 1)
+    return vals, locs, torch.gather(c, -1, idx)

@@ -1,0 +1,203 @@
+"""Profile of the PyTorch/CUDA port's main path on one CUDA device.
+
+Builds the bench mixture as ``chip_smoke.py`` does (N=4, M=48, 400-byte
+payloads, ``block_size=65536``, ``n_blocks=2``) and measures:
+
+* per ported kernel: the wrapper's time (CUDA events over back-to-back
+  calls), the host time to enqueue one call, and the kernel's own device
+  time and the device kernels per call (``torch.profiler``);
+* per detect level (``use_pallas`` 0, 1, 2): the time of each stage (front
+  end, detect, candidate decode; CUDA events with a sync between them), the
+  step wall time, the device busy time and its share of the wall, device
+  kernels per step, peak device memory and the top device kernels.
+
+Steps after the first feed the same chunk from the carried state; their
+results are not checked (``chip_smoke.py`` checks decoding).  Prints one
+JSON line per measurement and writes them all to ``--out``.
+
+    python3 scripts/profile_port.py [--out build/profile_port.json]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_events(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _profile(fn, n: int):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return _device_events(prof)
+
+
+def profile_kernels(s1, blocks, dev):
+    """Wrapper time vs the kernel's own device time, per ported kernel."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.models.multichannel import Mcrx
+    from liquid_usrp_tpu_torch.ops import kernels
+    rx = Mcrx(cs.N, s1, cs.N_BLOCKS, dev)
+    st = rx.init_state()
+    _, _, chans = rx.front_end(st, blocks)
+    _, exts = ofdm_sync.extended_windows(s1, st.syncs.tail, chans)
+    tmpl = rx.tables.xc_tmpl
+    span = ofdm_sync._xc_span(len(tmpl))
+    d, L = cs.M // 4, 2 * cs.M - cs.M // 4
+    calls = {
+        "detect_metric_xcorr_onepass": (
+            "xcorr_metric_kernel",
+            lambda: kernels.detect_metric_xcorr_onepass(
+                exts, tmpl, span, s1.block_size + 2 * cs.M + 1)),
+        "detect_candidates_onepass": (
+            "detect_candidates_kernel",
+            lambda: kernels.detect_candidates_onepass(
+                exts, d, L, cs.M, s1.block_size, s1.threshold,
+                s1.max_frames)),
+    }
+    out = {}
+    for name, (kname, fn) in calls.items():
+        wrapper_ms = cs.cuda_ms(fn, 100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 10.0
+        torch.cuda.synchronize()
+        ev = _profile(fn, 20)
+        kern = [e for e in ev if kname in e.key]
+        out[name] = dict(
+            wrapper_ms=wrapper_ms, host_enqueue_ms=host_ms,
+            kernel_device_us=sum(_device_us(e) for e in kern) /
+            max(1, sum(e.count for e in kern)),
+            all_device_us_per_call=sum(_device_us(e) for e in ev) / 20,
+            device_kernels_per_call=sum(e.count for e in ev) / 20)
+        print(name, json.dumps(out[name]), flush=True)
+    rows, length = exts.shape
+    out["bytes"] = dict(ext_read=rows * length * 8,
+                        b1_write=rows * (s1.block_size + 2 * cs.M + 1) * 4)
+    print("bytes", json.dumps(out["bytes"]), flush=True)
+    return out
+
+
+def profile_level(level, params, blocks, dev, stage_steps=6, wall_steps=5,
+                  prof_steps=3):
+    """Stage times, wall time, busy share and top kernels at one level."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.models.multichannel import Mcrx
+    sync = ofdm_sync.make_sync(params, block_size=cs.BLOCK,
+                               max_payload=cs.MAX_PAYLOAD,
+                               max_frames=cs.MAX_FRAMES, use_pallas=level)
+    rx = Mcrx(cs.N, sync, cs.N_BLOCKS, dev)
+    st = rx.init_state()
+    for _ in range(2):
+        st, _ = rx.step(st, blocks)
+    stages = {"front_end": 0.0, "detect": 0.0, "decode": 0.0}
+    for _ in range(stage_steps):
+        torch.cuda.synchronize()
+        e0 = _event()
+        _, _, ch = rx.front_end(st, blocks)
+        e1 = _event()
+        _, ex = ofdm_sync.extended_windows(sync, st.syncs.tail, ch)
+        det, locs, c_at = ofdm_sync._detect_candidates(sync, ex, rx.tables)
+        e2 = _event()
+        row_of = torch.arange(ex.shape[0], device=dev).repeat_interleave(
+            sync.max_frames)
+        ofdm_sync._gated_decode(sync, rx.tables, ex, bool(det.any()),
+                                locs.reshape(-1), c_at.reshape(-1), row_of)
+        e3 = _event()
+        torch.cuda.synchronize()
+        stages["front_end"] += e0.elapsed_time(e1) / stage_steps
+        stages["detect"] += e1.elapsed_time(e2) / stage_steps
+        stages["decode"] += e2.elapsed_time(e3) / stage_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(wall_steps):
+        st, _ = rx.step(st, blocks)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / wall_steps
+    peak = torch.cuda.max_memory_allocated()
+    state = [st]
+
+    def one():
+        state[0], _ = rx.step(state[0], blocks)
+
+    kev = _profile(one, prof_steps)
+    busy_ms = sum(_device_us(e) for e in kev) / prof_steps / 1e3
+    top = sorted(kev, key=_device_us, reverse=True)[:8]
+    rec = dict(stage_ms=stages, step_wall_ms=wall_ms,
+               device_busy_ms_per_step=busy_ms,
+               busy_share_of_wall=busy_ms / wall_ms,
+               kernels_per_step=sum(e.count for e in kev) / prof_steps,
+               peak_mem_bytes=peak,
+               top=[(e.key[:90], _device_us(e) / prof_steps / 1e3,
+                     e.count / prof_steps) for e in top])
+    print("level", level, json.dumps(rec), flush=True)
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile_port.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 1
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {"card": cs.card()}
+    print(out["card"], flush=True)
+    params = ofdm.make_ofdm_params(cs.M, cs.CP, cs.TAPER)
+    s1 = ofdm_sync.make_sync(params, block_size=cs.BLOCK,
+                             max_payload=cs.MAX_PAYLOAD,
+                             max_frames=cs.MAX_FRAMES, use_pallas=1)
+    mixture, _ = cs.build_mixture(params, ofdm.default_props(),
+                                  cs.BLOCK * cs.N_BLOCKS,
+                                  s1.overlap + 8 * cs.M, dev)
+    nrng = np.random.default_rng(1)
+    noise = (nrng.normal(size=mixture.shape) +
+             1j * nrng.normal(size=mixture.shape)).astype(np.complex64)
+    blocks = torch.as_tensor((mixture + 0.01 * noise).reshape(-1),
+                             device=dev)
+    out["kernels"] = profile_kernels(s1, blocks, dev)
+    out["levels"] = {level: profile_level(level, params, blocks, dev)
+                     for level in (0, 1, 2)}
+    path = Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    print(f"wrote {path}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

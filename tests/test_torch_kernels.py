@@ -1,0 +1,142 @@
+"""The port's detect kernels B1/B2: plain versions vs the JAX kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; these
+tests hold that plain version against the JAX Pallas kernel run in
+interpret mode (as the JAX suite runs it on CPU) and against the JAX XLA
+path.  The CUDA kernels themselves are compared with the plain versions on
+the card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+
+Tolerances: B1 plain vs JAX interpret atol 1e-5 (at M=48, and on a short
+zero-padded row); B1 plain vs the JAX FFT
+path atol 1e-3 (JAX documents ~3e-4 between those two).  B2 plain vs JAX
+interpret: ``detected`` equal, ``locs`` equal where detected (plateau-free
+input), ``vals`` atol 1e-5, ``c_at`` rtol 1e-4.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from liquid_usrp_tpu.framing import ofdm as jofdm
+from liquid_usrp_tpu.framing import ofdm_sync as jsync
+from liquid_usrp_tpu.ops import pallas_kernels as jpk
+from liquid_usrp_tpu_torch.framing import ofdm as tofdm
+from liquid_usrp_tpu_torch.framing import ofdm_sync as tsync
+from liquid_usrp_tpu_torch.ops import kernels
+
+BS = 4096
+
+
+@pytest.fixture(scope="module", params=[48, 64])
+def loaded(request):
+    """Two extended windows (rows) with frames (from the port's TX) at
+    distinct offsets in 0.02-rms noise, and the matching JAX sync config."""
+    M = request.param
+    params = jofdm.make_ofdm_params(M, M // 8, 4)
+    sync = jsync.make_sync(params, block_size=BS, max_payload=128,
+                           max_frames=8)
+    rng = np.random.default_rng(M)
+    ext = np.zeros((2, sync.overlap + BS), np.complex64)
+    for row, pos in ((0, 2000), (1, 700)):
+        frame = tofdm.assemble_frame(
+            tofdm.make_ofdm_params(M, M // 8, 4), tofdm.default_props(),
+            torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+            torch.as_tensor(rng.integers(0, 256, 64, dtype=np.uint8))
+        ).numpy()
+        ext[row, pos:pos + len(frame)] = frame
+    ext += (0.02 * (rng.normal(size=ext.shape) +
+                    1j * rng.normal(size=ext.shape))).astype(np.complex64)
+    return params, sync, ext
+
+
+def test_b1_plain_matches_jax_kernel_and_fft_path(loaded):
+    params, sync, ext = loaded
+    M = params.M
+    tmpl = np.tile(params.s0_time, jofdm.NUM_S0)
+    span = jsync._xc_span(len(tmpl))
+    n_metric = BS + 2 * M + 1
+    got = kernels.detect_metric_xcorr_onepass(torch.as_tensor(ext), tmpl,
+                                              span, n_metric).numpy()
+    assert got.shape == (2, n_metric)
+    if M == 48:         # the JAX suite runs the kernel itself at M=48
+        want = np.asarray(jpk.detect_metric_xcorr_onepass(
+            jnp.asarray(ext[0]), tmpl, span, n_metric, interpret=True))
+        np.testing.assert_allclose(got[0], want, atol=1e-5)
+        assert got[0].argmax() == want.argmax()
+    for row in range(2):
+        fft = np.asarray(jsync._detect_metric_xcorr(sync,
+                                                    jnp.asarray(ext[row])))
+        np.testing.assert_allclose(got[row], fft, atol=1e-3)
+        assert got[row].argmax() == fft.argmax()
+    # the port's own FFT path (detect level 0) agrees with both
+    tables = tsync.sync_tables(tsync.make_sync(
+        params, block_size=BS, max_payload=128, max_frames=8), "cpu")
+    lvl0 = tsync._detect_metric_xcorr(
+        tsync.make_sync(params, block_size=BS, max_payload=128,
+                        max_frames=8), torch.as_tensor(ext), tables)
+    np.testing.assert_allclose(lvl0.numpy(), got, atol=1e-3)
+    assert kernels.launches["detect_metric_xcorr_onepass"] == 0
+
+
+def test_b1_short_row_zero_padding():
+    """A row shorter than the JAX kernel's raster is zero-padded, and the
+    padding enters the floor's mean, as in JAX."""
+    params = jofdm.make_ofdm_params(48, 6, 4)
+    tmpl = np.tile(params.s0_time, jofdm.NUM_S0)
+    rng = np.random.default_rng(1)
+    x = (0.01 * (rng.normal(size=1300) + 1j * rng.normal(size=1300))
+         ).astype(np.complex64)
+    x[200:296] += tmpl
+    got = kernels.detect_metric_xcorr_onepass(torch.as_tensor(x), tmpl, 24,
+                                              1200).numpy()
+    want = np.asarray(jpk.detect_metric_xcorr_onepass(
+        jnp.asarray(x), tmpl, 24, 1200, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert got.argmax() == 200
+
+
+def test_b2_plain_matches_jax_kernel(loaded):
+    params, sync, ext = loaded
+    M = params.M
+    d = M // 4
+    L = jofdm.NUM_S0 * M - d
+    vals, locs, c_at = kernels.detect_candidates_onepass(
+        torch.as_tensor(ext), d, L, M, BS, sync.threshold, sync.max_frames)
+    assert vals.shape == locs.shape == c_at.shape == (2, sync.max_frames)
+    for row in range(2):
+        jv, jl, jc = (np.asarray(a) for a in jpk.detect_candidates_onepass(
+            jnp.asarray(ext[row]), d, L, M, BS, sync.threshold,
+            sync.max_frames, interpret=True))
+        det = vals[row].numpy() > 0
+        np.testing.assert_array_equal(det, jv > 0)
+        assert det.any()
+        np.testing.assert_array_equal(locs[row].numpy()[det], jl[det])
+        np.testing.assert_allclose(vals[row].numpy()[det], jv[det],
+                                   atol=1e-5)
+        np.testing.assert_allclose(c_at[row].numpy()[det], jc[det],
+                                   rtol=1e-4)
+    # the autocorrelation metric itself vs the JAX XLA formulation
+    metric, c = kernels.autocorr_metric(torch.as_tensor(ext[0]), d, L)
+    jm, jc = jsync._detect_metric(sync, jnp.asarray(ext[0]))
+    np.testing.assert_allclose(metric.numpy(), np.asarray(jm), atol=5e-4)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=2e-3)
+    assert kernels.launches["detect_candidates_onepass"] == 0
+
+
+def test_wrappers_dispatch_by_device():
+    """A CPU tensor takes the plain version (no launch is counted); a
+    tensor on a device without a kernel raises instead of falling back."""
+    x = torch.zeros(4096 + 2000, dtype=torch.complex64)
+    tmpl = np.ones(96, np.complex64)
+    kernels.reset_launch_counts()
+    kernels.detect_metric_xcorr_onepass(x, tmpl, 24, 4193)
+    kernels.detect_candidates_onepass(x, 12, 84, 48, 4096, 0.5, 4)
+    assert kernels.launches == {"detect_metric_xcorr_onepass": 0,
+                                "detect_candidates_onepass": 0}
+    meta = x.to("meta")
+    with pytest.raises(RuntimeError):
+        kernels.detect_metric_xcorr_onepass(meta, tmpl, 24, 4193)
+    with pytest.raises(RuntimeError):
+        kernels.detect_candidates_onepass(meta, 12, 84, 48, 4096, 0.5, 4)
+    with pytest.raises(ValueError):
+        kernels.detect_metric_xcorr_onepass(x, tmpl[:95], 24, 4193)
