@@ -1,17 +1,24 @@
 """On-card smoke run of the PyTorch/CUDA port (``liquid_usrp_tpu_torch``).
 
-Drives the port's main path — the multichannel OFDM receiver (NCO
-mix-down -> 2N-bin PFB analyzer -> batched N-channel detect + decode) — once
-on one CUDA device at the full bench configuration, and checks it:
+Drives the port's two paths once on one CUDA device and checks them: the
+multichannel OFDM receiver (NCO mix-down -> 2N-bin PFB analyzer -> batched
+N-channel detect + decode) at the full bench configuration, and the
+single-channel OFDM transceiver (``OfdmTxRx``, the ``ofdmflexframe_tx/rx``
+apps) at the app defaults:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``liquid_usrp_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (B1 max abs difference <= 1e-4; B2
-   ``detected`` identical, ``vals`` atol 1e-4, detected offsets equal or
-   within 3 samples, and ``c_at`` within 1e-4 of ``|c|`` of the plain lag
-   correlation at the kernel's offsets), with times;
-4. the main path at N=4, M=48, cp=6, taper=4, 400-byte payloads,
+   shapes its path gives it, with times.  B1 and B2 on the multichannel
+   windows (B1 max abs difference <= 1e-4; B2 ``detected`` identical,
+   ``vals`` atol 1e-4, detected offsets equal or within 3 samples, and
+   ``c_at`` within 1e-4 of ``|c|`` of the plain lag correlation at the
+   kernel's offsets); B3, B4 and B5 on the 8 extended windows of the
+   single-channel path's first dispatch (B3 vs ``autocorr_metric``: metric
+   <= 1e-4, ``c`` within 1e-4 of max ``|c|``; B4/B5 vs
+   ``autocorr_metric_prefix``: metric <= 1e-5, ``c`` within 1e-5 of max
+   ``|c|``);
+4. the multichannel path at N=4, M=48, cp=6, taper=4, 400-byte payloads,
    ``block_size=65536``, ``n_blocks=2``, ``max_frames=24``,
    ``max_payload=512`` for detect levels ``use_pallas`` 0, 1 and 2, on a
    mixture built by the port's own TX exactly as ``bench.py`` builds its
@@ -27,7 +34,24 @@ on one CUDA device at the full bench configuration, and checks it:
 6. decode-verified samples/s per level, timed with CUDA events over
    ``TIMED_STEPS`` steps (a smoke window, not a benchmark): each timed
    step decodes the loaded chunk from the initial state, and each must
-   give the count and fingerprint of the checked first step.
+   give the count and fingerprint of the checked first step;
+7. the single-channel path: ``ofdmflexframe_tx.main`` writes 40 frames
+   (M=48, cp=6, taper=4, 1200-byte QPSK payloads, FEC none + Golay(24,12),
+   CRC32, -12 dB, seed 42); ``OfdmTxRx`` (``block_size=16384``,
+   ``batch_blocks=8``, ``max_payload=2048``) and ``ofdmflexframe_rx.main``
+   must decode 40/40 with the regenerated payloads; then ``run_rx`` at each
+   detect config (xcorr at levels 0 and 1, the legacy detector at levels 0,
+   1 (B3) and 2 (B2)), and at the legacy level 1 again on the stream
+   through ``--snr 20 --cfo 0.045`` (every offset within 1.5e-3); each
+   config's kernel must have launched;
+8. ``OfdmTxRx.debug_print`` on the card, which must launch B3;
+9. the multichannel receiver at M=16 (cp=4, taper=2, ``use_pallas=2``):
+   every injected frame decodes with ``bench.py``'s fingerprints, B3 is
+   launched and B2 is not (its 64-sample segments need M >= 32);
+10. decode-verified samples/s of the single-channel path per detect
+   config, and the time of one 8-block dispatch, over a smoke window;
+11. B4 and B5 lie on no path: their launch counts, summed over the path
+   runs of 4, 7, 8 and 9, must be 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -37,9 +61,13 @@ script exits non-zero without that line; so does a machine without CUDA.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,7 +91,28 @@ KERNELS = {
     "detect_candidates_onepass": dict(
         level=2, source="liquid_usrp_tpu_torch/csrc/detect_candidates.cu",
         replaces="liquid_usrp_tpu/ops/pallas_kernels.py:491"),
+    "detect_metric_onepass": dict(
+        level=None, source="liquid_usrp_tpu_torch/csrc/autocorr_metric.cu",
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:161"),
+    "detect_metric_fused_2d": dict(
+        level=None, source="liquid_usrp_tpu_torch/csrc/autocorr_prefix.cu",
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:246"),
+    "detect_metric_fused": dict(
+        level=None, source="liquid_usrp_tpu_torch/csrc/autocorr_prefix.cu",
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:332"),
 }
+# the single-channel path at the ofdmflexframe_tx/rx defaults
+SC_FRAMES, SC_PAYLOAD, SC_SEED = 40, 1200, 42
+SC_BLOCK, SC_BATCH, SC_MAX_PAYLOAD = 16384, 8, 2048
+SC_CFO = 0.045                 # rad/sample, above pi / (2 M)
+# detect configs of the single-channel path: (xcorr_detect, use_pallas),
+# and the kernel each must launch
+SC_CONFIGS = {(True, 0): None, (True, 1): "detect_metric_xcorr_onepass",
+              (False, 0): None, (False, 1): "detect_metric_onepass",
+              (False, 2): "detect_candidates_onepass"}
+SC_TIMED_RUNS = 2
+# the multichannel receiver below the fused kernel's M >= 32
+M16, CP16, TAPER16 = 16, 4, 2
 
 
 def card() -> str:
@@ -352,6 +401,262 @@ def check_class_entry(dev):
           f"payload-exact", flush=True)
 
 
+def check_autocorr_kernels(exts):
+    """B3, B4 and B5 vs their plain versions on the single-channel path's
+    first 8 extended windows, with times.  Returns per-kernel stats."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    print(f"kernel inputs: {tuple(exts.shape)} {exts.dtype}", flush=True)
+    lag = M // 4
+    span = 2 * M - lag
+    stats = {}
+    for name, plain, limit in (
+            ("detect_metric_onepass", kernels.autocorr_metric, 1e-4),
+            ("detect_metric_fused_2d", kernels.autocorr_metric_prefix, 1e-5),
+            ("detect_metric_fused", kernels.autocorr_metric_prefix, 1e-5)):
+        fn = getattr(kernels, name)
+        m, c = fn(exts, lag, span)
+        torch.cuda.synchronize()
+        mr, cr = plain(exts, lag, span)
+        torch.cuda.synchronize()
+        err = float((m - mr).abs().max())
+        c_rel = float((c - cr).abs().max() / cr.abs().max())
+        print(f"{name} kernel vs plain: metric max abs diff {err:.3e} "
+              f"(limit {limit}), c max diff {c_rel:.3e} of max |c| (limit "
+              f"{limit}), metric peak {float(mr.max()):.4f}", flush=True)
+        if not (err <= limit and c_rel <= limit and m.shape == mr.shape):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        ms = cuda_ms(lambda: fn(exts, lag, span), 50)
+        plain_ms = cuda_ms(lambda: plain(exts, lag, span), 10)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({tuple(exts.shape)} rows)", flush=True)
+        stats[name] = (ms, plain_ms, err)
+    return stats
+
+
+def sc_windows(params, stream, dev):
+    """The extended windows of the single-channel path's first dispatch
+    (``[SC_BATCH, overlap + SC_BLOCK]``), as the detect front end sees
+    them."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    sync = ofdm_sync.make_sync(params, block_size=SC_BLOCK,
+                               max_payload=SC_MAX_PAYLOAD)
+    blocks = torch.as_tensor(stream[:SC_BATCH * SC_BLOCK].reshape(
+        1, SC_BATCH, SC_BLOCK), device=dev)
+    _, exts = ofdm_sync.extended_windows(
+        sync, ofdm_sync.sync_init(sync, dev).tail[None], blocks)
+    return exts
+
+
+def sc_transmit(path):
+    """``ofdmflexframe_tx.main`` at its defaults (40 frames of 1200 bytes,
+    seed 42) into ``path``: (stream, {packet id: payload}) with the
+    payloads regenerated from the seed as the app draws them."""
+    from liquid_usrp_tpu_torch.apps import ofdmflexframe_tx
+    from liquid_usrp_tpu_torch.io.streams import read_iq
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = ofdmflexframe_tx.main([
+            "-o", path, "-N", str(SC_FRAMES), "-P", str(SC_PAYLOAD),
+            "-s", str(SC_SEED), "-g", "-12", "-M", str(M), "-C", str(CP),
+            "-T", str(TAPER), "-m", "qpsk", "-c", "none", "-k", "g2412"])
+    if rc != 0:
+        raise AssertionError(f"ofdmflexframe_tx exited {rc}")
+    rng = np.random.default_rng(SC_SEED)
+    sent = {}
+    for pid in range(SC_FRAMES):
+        rng.integers(0, 256, 6, dtype=np.uint8)      # header bytes 2..7
+        sent[pid] = rng.integers(0, 256, SC_PAYLOAD, dtype=np.uint8)
+    return read_iq(path), sent
+
+
+def check_sc_frames(what, frames, sent, cfo=None):
+    """Raise unless ``frames`` hold exactly the sent packets, payload-exact
+    (and each offset within ``CFO_ATOL`` of ``cfo``).  Returns the largest
+    offset error (0 without ``cfo``)."""
+    ok = {}
+    for f in frames:
+        if f["payload_valid"]:
+            ok[(int(f["header"][0]) << 8) | int(f["header"][1])] = f
+    n_valid = sum(f["payload_valid"] for f in frames)
+    if n_valid != len(sent) or set(ok) != set(sent):
+        raise AssertionError(f"{what}: {n_valid} payload-valid frames for "
+                             f"{len(sent)} sent")
+    for pid, p in sent.items():
+        if not np.array_equal(ok[pid]["payload"], p):
+            raise AssertionError(f"{what}: packet {pid} payload mismatch")
+    if cfo is None:
+        return 0.0
+    err = max(abs(f["stats"]["cfo"] - cfo) for f in ok.values())
+    if not err <= CFO_ATOL:
+        raise AssertionError(f"{what}: CFO estimate off by {err}")
+    return err
+
+
+def sc_receiver(dev, config=None):
+    """``OfdmTxRx`` at the app defaults; ``config = (xcorr_detect,
+    use_pallas)`` replaces its synchronizer with that detect config, so
+    that ``run_rx`` dispatches as it always does, through another
+    detector."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import OfdmTxRx
+    rx = OfdmTxRx(M=M, cp_len=CP, taper_len=TAPER, block_size=SC_BLOCK,
+                  batch_blocks=SC_BATCH, max_payload=SC_MAX_PAYLOAD,
+                  device=dev)
+    if config is not None:
+        xcorr, level = config
+        rx._sync = ofdm_sync.make_sync(
+            rx.params, block_size=SC_BLOCK, max_payload=SC_MAX_PAYLOAD,
+            use_pallas=level, xcorr_detect=xcorr)
+        rx._step = ofdm_sync.make_sync_step(rx._sync)
+        rx.reset_rx()
+    rx.start_rx()
+    return rx
+
+
+def sc_decode(rx, stream):
+    """One whole-stream ``run_rx`` with a flush, from the initial state."""
+    rx.reset_rx()
+    frames = rx.run_rx(stream, flush=True)
+    torch.cuda.synchronize()
+    return frames
+
+
+def run_single_channel(stream, sent, path, dev, label):
+    """The single-channel path: the class and the RX app at their
+    defaults, then each detect config (with its kernel launched), the
+    legacy B3 config through ``--snr 20 --cfo 0.045``, and decode-verified
+    timings.  Returns (launches per config, and of the impaired run under
+    "impaired"; timing lines)."""
+    from liquid_usrp_tpu_torch.apps import ofdmflexframe_rx
+    from liquid_usrp_tpu_torch.apps.common import (apply_channel,
+                                                   occupied_power)
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    from liquid_usrp_tpu_torch.ops import kernels
+    rx = sc_receiver(dev)
+    check_sc_frames("OfdmTxRx", sc_decode(rx, stream), sent)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ofdmflexframe_rx.main(["-i", path, "-q"])
+    got = re.search(r"valid packets\s+:\s+(\d+)", out.getvalue())
+    if rc != 0 or got is None or int(got.group(1)) != SC_FRAMES:
+        raise AssertionError(f"ofdmflexframe_rx: rc {rc}, "
+                             f"{out.getvalue()[-400:]}")
+    print(f"single channel: OfdmTxRx and ofdmflexframe_rx decode "
+          f"{SC_FRAMES}/{SC_FRAMES} payload-exact ({len(stream)} samples, "
+          f"{len(stream) // SC_BLOCK} blocks of {SC_BLOCK})", flush=True)
+
+    impaired = apply_channel(stream, {"snr": "20", "cfo": str(SC_CFO)},
+                             signal_power=occupied_power(stream))
+    launches, timing = {}, {}
+    for config, kernel in SC_CONFIGS.items():
+        rx = sc_receiver(dev, config)
+        kernels.reset_launch_counts()
+        frames = sc_decode(rx, stream)
+        launches[config] = dict(kernels.launches)
+        check_sc_frames(f"config {config}", frames, sent)
+        if kernel is not None and launches[config][kernel] <= 0:
+            raise AssertionError(f"config {config}: {kernel} was not "
+                                 f"launched")
+        cfo_err = None
+        if config == (False, 1):
+            kernels.reset_launch_counts()
+            cfo_err = check_sc_frames("legacy B3 with --snr 20 --cfo "
+                                      f"{SC_CFO}", sc_decode(rx, impaired),
+                                      sent, SC_CFO)
+            launches["impaired"] = dict(kernels.launches)
+            if launches["impaired"][kernel] <= 0:
+                raise AssertionError("B3 was not launched on the impaired "
+                                     "stream")
+        # decode-verified timings: whole-stream runs, each checked, and
+        # one 8-block dispatch from the initial state, each giving the
+        # checked first dispatch's valid count
+        secs = []
+        for _ in range(SC_TIMED_RUNS):
+            t0 = time.perf_counter()
+            frames = sc_decode(rx, stream)
+            secs.append(time.perf_counter() - t0)
+            check_sc_frames(f"config {config}, timed run", frames, sent)
+        blocks = torch.as_tensor(stream[:SC_BATCH * SC_BLOCK].reshape(
+            SC_BATCH, SC_BLOCK), device=dev)
+        st0 = ofdm_sync.sync_init(rx._sync, dev)
+        counts = []
+
+        def dispatch():
+            _, res = ofdm_sync.sync_blocks_batched(rx._sync, st0, blocks)
+            counts.append(int(_to_host(res).payload_valid.sum()))
+        disp_ms = cuda_ms(dispatch, 5)
+        if len(set(counts)) != 1 or counts[0] <= 0:
+            raise AssertionError(f"config {config}: timed dispatches "
+                                 f"decoded {counts}")
+        sps = len(stream) / min(secs)
+        timing[config] = (disp_ms, sps)
+        print(f"single channel xcorr_detect={config[0]} use_pallas="
+              f"{config[1]}: {SC_FRAMES}/{SC_FRAMES} payload-exact"
+              + (f", with --snr 20 --cfo {SC_CFO} {SC_FRAMES}/{SC_FRAMES}, "
+                 f"offsets within {cfo_err:.2e}" if cfo_err is not None
+                 else "")
+              + f"; {disp_ms:.3f} ms per {SC_BATCH}-block dispatch "
+              f"({counts[0]} frames), {sps / 1e6:.3f} MS/s decode-verified "
+              f"(best of {SC_TIMED_RUNS} whole-stream runs); launches "
+              f"{ {k: v for k, v in launches[config].items() if v} } on "
+              f"{label}", flush=True)
+    return launches, timing
+
+
+def check_debug_print(stream, dev, tmpdir):
+    """``OfdmTxRx.debug_enable -> run_rx -> debug_print`` on the card: the
+    metric of the dump comes from B3.  Returns the launch counts."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    rx = sc_receiver(dev)
+    rx.debug_enable()
+    rx.run_rx(stream[:3 * SC_BLOCK])
+    kernels.reset_launch_counts()
+    path = rx.debug_print(str(Path(tmpdir) / "sc"))
+    torch.cuda.synchronize()
+    n = kernels.launches["detect_metric_onepass"]
+    text = Path(path).read_text()
+    if n <= 0 or "metric = [" not in text:
+        raise AssertionError(f"debug_print: B3 launched {n} times")
+    print(f"OfdmTxRx.debug_print: B3 launched {n} time(s), wrote "
+          f"{len(text)} bytes", flush=True)
+    return dict(kernels.launches)
+
+
+def run_mcrx_m16(noise, flush, weights, dev):
+    """The multichannel receiver at M=16, ``use_pallas=2``: every injected
+    frame decodes with ``bench.py``'s fingerprints, through B3 and not B2."""
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    from liquid_usrp_tpu_torch.models.multichannel import \
+        make_mcrx_batched_step
+    from liquid_usrp_tpu_torch.ops import kernels
+    params = ofdm.make_ofdm_params(M16, CP16, TAPER16)
+    sync = ofdm_sync.make_sync(params, block_size=BLOCK,
+                               max_payload=MAX_PAYLOAD,
+                               max_frames=MAX_FRAMES, use_pallas=2)
+    mixture, payloads = build_mixture(params, ofdm.default_props(),
+                                      BLOCK * N_BLOCKS,
+                                      sync.overlap + 8 * M16, dev)
+    blocks = torch.as_tensor((mixture + 0.01 * noise).reshape(-1),
+                             device=dev)
+    expected = expected_fingerprints(payloads, weights)
+    init, step = make_mcrx_batched_step(N, sync, N_BLOCKS, dev)
+    w64 = torch.as_tensor(weights.astype(np.int64), device=dev)
+    n_flush = -(-(sync.overlap // sync.block_size + 1) // N_BLOCKS)
+    kernels.reset_launch_counts()
+    total, _, _ = decode_stream(step, init, blocks, flush, n_flush, w64)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check_decoded("M=16", *total, expected)
+    if launches["detect_metric_onepass"] <= 0 or \
+            launches["detect_candidates_onepass"] != 0:
+        raise AssertionError(f"M=16: launches {launches}")
+    print(f"multichannel M=16 use_pallas=2: {int(total[0].sum())}/"
+          f"{sum(expected[0])} frames decoded, fingerprints match; B3 "
+          f"launched {launches['detect_metric_onepass']} times, B2 0",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -412,18 +717,40 @@ def main() -> int:
 
     times = check_kernels(sync1, Mcrx(N, sync1, N_BLOCKS, dev), blocks)
 
-    launches, step_ms = {}, {}
+    launches, step_ms, path_runs = {}, {}, []
     for level in (0, 1, 2):
         lv_launch, step_ms[level] = run_level(
             level, params, (blocks, cfo_blocks), flush, weights, expected,
             dev, label)
+        path_runs.append(lv_launch)
         for name, k in KERNELS.items():
             if k["level"] == level:
                 launches[name] = lv_launch[name]
 
     check_class_entry(dev)
-    print(f"main path ms/step by level {step_ms}; total "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"main path ms/step by level {step_ms}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        sc_path = str(Path(tmpdir) / "ofdmflexframe.iq")
+        stream, sent = sc_transmit(sc_path)
+        times.update(check_autocorr_kernels(sc_windows(params, stream,
+                                                       dev)))
+        sc_launches, _ = run_single_channel(stream, sent, sc_path, dev,
+                                            label)
+        path_runs += [*sc_launches.values(),
+                      check_debug_print(stream, dev, tmpdir)]
+    path_runs.append(run_mcrx_m16(noise, flush, weights, dev))
+    # B3 is on the single-channel path (legacy detector, level 1); B4 and
+    # B5 are on no path (the JAX package calls them only from tests): their
+    # counts over every path run above must be 0
+    launches["detect_metric_onepass"] = \
+        sc_launches[(False, 1)]["detect_metric_onepass"]
+    for name in ("detect_metric_fused_2d", "detect_metric_fused"):
+        launches[name] = sum(run[name] for run in path_runs)
+        if launches[name] != 0:
+            raise AssertionError(f"{name}, on no path, was launched "
+                                 f"{launches[name]} times by the paths")
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],

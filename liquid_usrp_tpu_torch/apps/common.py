@@ -1,8 +1,11 @@
-"""Shared app plumbing: getopt-compatible flags and RX statistics.
+"""Shared app plumbing: getopt-compatible flags, channel impairments,
+RX statistics and the framesync debug dump.
 
-Port of the parts of ``liquid_usrp_tpu/apps/common.py`` the multichannel
-apps use (``parse_args``, ``occupied_power``, ``RxStats``), plus
-:func:`reject_unported` for flags whose machinery is not ported yet.
+Port of the parts of ``liquid_usrp_tpu/apps/common.py`` the OFDM apps use
+(``parse_args``, ``budget_note``, ``occupied_power``,
+``print_usage_schemes``, ``apply_channel``, ``RxStats``,
+``dump_framesync_octave``), plus :func:`reject_unported` for flags whose
+machinery is not ported yet.
 """
 from __future__ import annotations
 
@@ -10,8 +13,14 @@ import getopt as _getopt
 import sys
 
 import numpy as np
+import torch
 
-__all__ = ["parse_args", "occupied_power", "RxStats", "reject_unported"]
+from ..ops import fec as fec_mod
+from ..ops import modem as modem_mod
+
+__all__ = ["parse_args", "reject_unported", "budget_note", "occupied_power",
+           "print_usage_schemes", "apply_channel", "RxStats",
+           "dump_framesync_octave"]
 
 
 def parse_args(argv, optstring: str, long_opts=None):
@@ -42,6 +51,22 @@ def reject_unported(flags: dict, names: dict) -> None:
         raise SystemExit(1)
 
 
+def budget_note(props, payload_len: int) -> int:
+    """The encode budget (expansion) for the selected FEC pair, printing
+    the receiver flags it needs (``--conv`` for a scheme outside the base
+    decode set, ``-e N`` past the default budget)."""
+    from ..framing import payload as payload_codec
+    exp = payload_codec.required_expansion(props, payload_len)
+    need_conv = any(s not in payload_codec.PAYLOAD_FECS
+                    for s in (props.fec0, props.fec1))
+    flags = ([] if not need_conv else ["--conv"]) + \
+        ([] if exp <= payload_codec.EXPANSION else [f"-e {exp}"])
+    if flags:
+        print(f"note: this FEC pair needs `{' '.join(flags)}` "
+              f"on the receiver")
+    return exp
+
+
 def occupied_power(stream: np.ndarray) -> float:
     """Mean |x|^2 over the occupied samples (the frames, not the zero gaps
     between them); 1.0 for empty or silent input."""
@@ -53,6 +78,31 @@ def occupied_power(stream: np.ndarray) -> float:
     if not occ.size:
         return 1.0
     return float(np.mean(occ)) or 1.0
+
+
+def print_usage_schemes(file=None):
+    """List the supported modulation and FEC names."""
+    file = file if file is not None else sys.stdout
+    print("  modulation schemes:", " ".join(modem_mod.mod_names()),
+          file=file)
+    print("  FEC schemes:", " ".join(fec_mod.fec_names()), file=file)
+
+
+def apply_channel(stream: np.ndarray, flags: dict, seed: int = 0,
+                  signal_power: float = 1.0) -> np.ndarray:
+    """Apply the ``--snr/--cfo/--delay`` virtual-air impairments when any is
+    given (the noise from a CPU ``torch.Generator`` seeded from ``--seed``,
+    else ``seed``); the stream is returned unchanged otherwise."""
+    snr = float(flags.get("snr", 1000.0))
+    cfo = float(flags.get("cfo", 0.0))
+    delay = int(flags.get("delay", 0))
+    if snr >= 1000.0 and cfo == 0.0 and delay == 0:
+        return stream
+    from ..io.channel_model import Channel, channel_apply
+    ch = Channel(snr_db=min(snr, 99.0), cfo=cfo, delay=delay)
+    gen = torch.Generator().manual_seed(int(flags.get("seed", seed)))
+    return channel_apply(ch, gen, torch.as_tensor(
+        np.asarray(stream, np.complex64)), signal_power=signal_power).numpy()
 
 
 class RxStats:
@@ -90,3 +140,36 @@ class RxStats:
             print("    data rate           : %12.8f kbps" %
                   (8.0 * self.num_bytes_received / runtime_s * 1e-3),
                   file=file)
+
+
+def dump_framesync_octave(path: str, title: str, stream: np.ndarray,
+                          cap: dict) -> None:
+    """Write one framesync debug capture (``ofdm_sync.debug_capture``) as
+    an octave script: raw IQ, detection metric, |H| and the received
+    constellation."""
+    def cvec(f, name, vals, limit=4096):
+        f.write(name + " = [" + " ".join(
+            "(%.5g%+.5gj)" % (v.real, v.imag) for v in vals[:limit])
+            + "];\n")
+
+    with open(path, "w") as f:
+        f.write("%% " + title + " (octave)\nclear all;\n")
+        f.write("%% strongest candidate: n0=%d detected=%d hdr_valid=%d "
+                "cfo=%.6f rssi=%.1f dB\n" %
+                (cap["n0"], cap["detected"], cap["header_valid"],
+                 cap["cfo"], cap["rssi"]))
+        cvec(f, "x", stream[:4096])
+        f.write("metric = [" + " ".join(
+            "%.4f" % v for v in cap["metric"][:4096]) + "];\n")
+        cvec(f, "H", cap["H"])               # channel estimate [M]
+        cvec(f, "syms_hdr", cap["hsyms_eq"])    # equalized header points
+        cvec(f, "syms_pay", cap["psyms_eq"])    # equalized payload points
+        f.write(
+            "figure;\n"
+            "subplot(2,2,1); plot(real(x)); ylabel('I');\n"
+            "subplot(2,2,2); plot(metric); ylabel('detect metric');\n"
+            "subplot(2,2,3); plot(20*log10(max(abs(H),1e-6))); "
+            "ylabel('|H| dB'); xlabel('subcarrier');\n"
+            "subplot(2,2,4); plot(real(syms_pay), imag(syms_pay), 'x', "
+            "real(syms_hdr), imag(syms_hdr), '.'); axis square; "
+            "xlabel('I'); ylabel('Q'); title('received constellation');\n")

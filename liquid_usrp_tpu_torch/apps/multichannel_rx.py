@@ -1,10 +1,10 @@
 """multichannel_rx — N-channel OFDM uplink RX from an IQ file.
 
 Port of ``liquid_usrp_tpu/apps/multichannel_rx.py``: per-frame line with
-the channel id recovered from header byte 2, then aggregate stats.  Runs on
-the first CUDA device when there is one.  The virtual-channel impairments
-(``--snr/--cfo/--delay``) and the debug dump (``-d``) are not ported yet
-and are rejected with an error.
+the channel id recovered from header byte 2, then aggregate stats, the
+virtual-channel impairments (``--snr/--cfo/--delay/--seed``) and a debug
+dump per channel (``-d``).  Runs on the first CUDA device when there is
+one.
 
     python -m liquid_usrp_tpu_torch.apps.multichannel_rx -i mc.iq -n 2
 """
@@ -15,13 +15,31 @@ import time
 
 from ..io.streams import read_iq
 from ..models.multichannel import MultichannelRx
-from .common import RxStats, parse_args, reject_unported
+from .common import RxStats, apply_channel, occupied_power, parse_args
 
 USAGE = """multichannel_rx -i in.iq [options]
   h : usage                     i : input IQ file (required)
   n : number of channels (2)    M : subcarriers (48)
   C : cyclic prefix (6)         q : quiet
+  d : debug dump prefix (writes <prefix>_framesync_channel<k>.m per
+      channel)
+  --snr/--cfo/--delay/--seed : virtual channel impairments
 """
+
+
+def _dump_channel_debug(prefix: str, rx, stream) -> None:
+    """Per-channel octave dumps: channelize the mixture once, then run the
+    single-synchronizer debug capture on each channel's baseband stream."""
+    from ..framing import ofdm_sync
+    from .common import dump_framesync_octave
+    chans = rx.channelize(stream[: (1 << 16) * 2 * rx.num_channels])
+    for ch in range(rx.num_channels):
+        cap = ofdm_sync.debug_capture(rx.sync, chans[ch], rx.rx.device)
+        path = f"{prefix}_framesync_channel{ch}.m"
+        dump_framesync_octave(
+            path, f"multichannel_rx channel {ch} debug capture",
+            chans[ch], cap)
+        print(f"debug capture written to {path}")
 
 
 def main(argv=None) -> int:
@@ -30,9 +48,6 @@ def main(argv=None) -> int:
     if "h" in flags:
         print(USAGE)
         return 0
-    reject_unported(flags, {"d": "debug dump", "snr": "channel SNR",
-                            "cfo": "carrier offset", "delay": "sample delay",
-                            "seed": "channel seed"})
     path = flags.get("i")
     if not path:
         print(USAGE)
@@ -45,6 +60,8 @@ def main(argv=None) -> int:
     rx = MultichannelRx(N, M=M, cp_len=cp, taper_len=min(4, cp),
                         block_size=4096, max_payload=1024)
     stream = read_iq(path)
+    stream = apply_channel(stream, flags,
+                           signal_power=occupied_power(stream))
     stats = RxStats()
     t0 = time.time()
     frames = rx.execute(stream) + rx.flush()
@@ -60,6 +77,8 @@ def main(argv=None) -> int:
                    "ok" if f["payload_valid"] else "FAIL"))
     print("multichannel_rx results:")
     stats.report(time.time() - t0)
+    if "d" in flags:
+        _dump_channel_debug(flags["d"], rx, stream)
     return 0
 
 

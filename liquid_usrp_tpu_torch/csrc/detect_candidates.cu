@@ -24,15 +24,15 @@
 // output reads one complex64 sample (8 B); the full-rate metric and
 // correlation never leave the chip and only 16 B per 64 outputs are
 // written.  The design stages a tile of CAND_TO outputs plus its halo (win
-// before; win + span + lag - 1 after) in shared memory as separate re/im
-// planes, forms the lag products and powers there once, computes the
-// metric for the tile and both NMS margins in shared memory, then lets
-// each warp reduce one segment with shuffles.  Its window sums (4 loads
-// per sample of the span) and the 2*win+1 NMS max are shared-memory loads
-// per output, and they, not device memory, limit this simple design
-// (PERF.md has the numbers).  Beyond the row end the stream repeats its
-// last sample and before its start it reads zero, as the JAX wrapper pads.
+// before; win + span + lag - 1 after) in shared memory with the tile stage
+// that kernel B3 also runs (autocorr_tile.cuh), computes the metric for the
+// tile and both NMS margins in shared memory, then lets each warp reduce one
+// segment with shuffles.  Its window sums (4 loads per sample of the span)
+// and the 2*win+1 NMS max are shared-memory loads per output, and they, not
+// device memory, limit this simple design (PERF.md has the numbers).
 #include <cuda_runtime.h>
+
+#include "autocorr_tile.cuh"
 
 #define CAND_TO 512       // outputs per block (8 segments)
 #define CAND_SEG 64       // outputs per reduced segment
@@ -49,55 +49,23 @@ detect_candidates_kernel(const float2* __restrict__ ext, int len, int lag,
   extern __shared__ float sm[];
   const int nm = CAND_TO + 2 * win;  // metric offsets [n0-win, n0+TO+win)
   const int np = nm + span - 1;      // lag-product / power offsets
-  const int nx = np + lag;           // stream samples
-  float* xr = sm;
-  float* xi = xr + nx;
-  float* pw = xi + nx;
-  float* pr = pw + nx;
-  float* pim = pr + np;
-  float* met = pim + np;
+  float* met = sm + ac_tile_floats(np, lag);
   float* cr = met + nm;
   float* ci = cr + CAND_TO;
 
   const int row = blockIdx.y;
-  const long long base = (long long)row * len;
   const int n0 = blockIdx.x * CAND_TO;
   const int m0 = n0 - win;  // stream offset of met[0]
-
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-    const int g = m0 + i;
-    float2 v = make_float2(0.f, 0.f);
-    if (g >= len)
-      v = ext[base + len - 1];
-    else if (g >= 0)
-      v = ext[base + g];
-    xr[i] = v.x;
-    xi[i] = v.y;
-    pw[i] = v.x * v.x + v.y * v.y;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < np; i += blockDim.x) {
-    // x[i] * conj(x[i+lag])
-    const float ar = xr[i], ai = xi[i], br = xr[i + lag], bi = xi[i + lag];
-    pr[i] = ar * br + ai * bi;
-    pim[i] = ai * br - ar * bi;
-  }
-  __syncthreads();
+  const AcTile t =
+      ac_stage_tile(sm, ext + (long long)row * len, len, m0, np, lag);
   const float floor_v = floors[row];
   for (int q = threadIdx.x; q < nm; q += blockDim.x) {
-    float cre = 0.f, cim = 0.f, e1 = 0.f, e2 = 0.f;
-    for (int i = 0; i < span; ++i) {
-      cre += pr[q + i];
-      cim += pim[q + i];
-      e1 += pw[q + i];
-      e2 += pw[q + lag + i];
-    }
-    const float c2 = cre * cre + cim * cim;
-    met[q] = (fminf(e1, e2) > floor_v) ? c2 / fmaxf(e1 * e2, 1e-12f) : 0.f;
+    float2 cq;
+    met[q] = ac_metric(t, q, span, lag, floor_v, cq);
     const int j = q - win;
     if (j >= 0 && j < CAND_TO) {
-      cr[j] = cre;
-      ci[j] = cim;
+      cr[j] = cq.x;
+      ci[j] = cq.y;
     }
   }
   __syncthreads();
@@ -152,10 +120,9 @@ extern "C" int detect_candidates_launch(const void* ext, int rows, int len,
       rows > 65535)
     return (int)cudaErrorInvalidValue;
   const int nm = CAND_TO + 2 * win;
-  const int np = nm + span - 1;
-  const int nx = np + lag;
   const size_t smem =
-      sizeof(float) * (size_t)(3 * nx + 2 * np + nm + 2 * CAND_TO);
+      sizeof(float) *
+      (size_t)(ac_tile_floats(nm + span - 1, lag) + nm + 2 * CAND_TO);
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(detect_candidates_kernel,

@@ -8,7 +8,9 @@ in fixed-size blocks with an overlap of one maximum frame length:
    frame starts.  ``OfdmSync.use_pallas`` selects the detector exactly as
    in JAX: 0 = segmented S0 cross-correlation through ``torch.fft``;
    1 = the same metric by kernel B1; 2 = the fused Schmidl-Cox candidate
-   kernel B2 (M >= 32).  The kernels live in ``ops/kernels.py``.
+   kernel B2 (M >= 32).  The legacy Schmidl-Cox detector
+   (``xcorr_detect=False``, and level 2 below M = 32) takes its metric from
+   kernel B3 at levels 1 and 2.  The kernels live in ``ops/kernels.py``.
 2. **Refine & decode** — batched over all candidates: coarse and fine CFO,
    S1 fine timing, channel estimate, pilot-tracked equalization, header
    decode, decision-directed channel refinement, payload demap and FEC.
@@ -41,7 +43,8 @@ from .payload import (EXPANSION as _EXPANSION, HEADER_BPS as _HEADER_BPS,
 
 __all__ = ["OfdmSync", "OfdmSyncState", "FrameResults", "SyncTables",
            "make_sync", "sync_init", "sync_tables", "sync_block",
-           "sync_channels_batched", "extended_windows", "PAYLOAD_FECS"]
+           "make_sync_step", "sync_blocks_batched", "sync_channels_batched",
+           "extended_windows", "debug_capture", "PAYLOAD_FECS"]
 
 # payload symbols feeding the decision-directed channel re-estimation
 _DD_SYMS = 64
@@ -60,7 +63,7 @@ class OfdmSync(NamedTuple):
     enc_max: int               # encoded payload buffer bytes
     fecs: tuple = PAYLOAD_FECS # runtime-decodable payload FEC set
     soft: bool = False         # soft decode (not ported; must be False)
-    use_pallas: int = 0        # detect kernel level: 0, 1 (B1) or 2 (B2)
+    use_pallas: int = 0        # detect kernel level: 0, 1 or 2 (B1-B3)
     xcorr_detect: bool = True  # segmented S0 xcorr metric (vs Schmidl-Cox)
     iter_header: bool = True   # second header decode on the DD channel
 
@@ -202,13 +205,11 @@ def sync_tables(sync: OfdmSync, device) -> SyncTables:
 
 def _detect_metric(sync: OfdmSync, ext: torch.Tensor):
     """S0 periodicity (Schmidl-Cox) metric ``(metric, c)`` for every offset
-    of each window ``ext [R, L]``."""
-    if sync.use_pallas:
-        raise NotImplementedError(
-            "the one-pass autocorrelation kernel (JAX detect_metric_onepass)"
-            " is not ported yet: use xcorr_detect=True, or use_pallas=0")
+    of each window ``ext [..., L]``: kernel B3 when ``use_pallas > 0``."""
     M = sync.params.M
     d = M // 4
+    if sync.use_pallas:
+        return kernels.detect_metric_onepass(ext, d, NUM_S0 * M - d)
     return kernels.autocorr_metric(ext, d, NUM_S0 * M - d)
 
 
@@ -386,9 +387,11 @@ def _demod_header(sync: OfdmSync, hflat: torch.Tensor):
 
 
 def _decode_window(sync: OfdmSync, tables: SyncTables, wraw: torch.Tensor,
-                   c_at: torch.Tensor):
+                   c_at: torch.Tensor, debug: bool = False):
     """Refine + decode windows ``wraw [R, W]`` (each from a candidate
-    offset) with their lag correlations ``c_at [R]``."""
+    offset) with their lag correlations ``c_at [R]``.  ``debug=True``
+    appends a dict of synchronizer internals (``H``, ``t1``, ``hsyms_eq``,
+    ``used_pts``, each with the leading ``[R]``) for :func:`debug_capture`."""
     p = sync.params
     M, cp = p.M, p.cp_len
     n_hsym = header_symbol_count(p)
@@ -502,8 +505,12 @@ def _decode_window(sync: OfdmSync, tables: SyncTables, wraw: torch.Tensor,
 
     rssi = 10.0 * torch.log10(torch.clamp(
         (torch.abs(wraw[:, :NUM_S0 * M]) ** 2).mean(-1), min=1e-12))
-    return (user, pdata.reshape(R, -1), plen, mod, f0, f1, check, hvalid,
-            rssi, hevm, cfo)
+    out = (user, pdata.reshape(R, -1), plen, mod, f0, f1, check, hvalid,
+           rssi, hevm, cfo)
+    if debug:
+        return out + ({"H": H, "t1": t1, "hsyms_eq": hflat,
+                       "used_pts": used_pts},)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -583,6 +590,30 @@ def sync_block(sync: OfdmSync, state: OfdmSyncState, block: torch.Tensor,
     return new_state, res
 
 
+def make_sync_step(sync: OfdmSync):
+    """``step(state, block) -> (state', FrameResults)`` closure over one
+    config (JAX jits this closure; the port runs it eagerly, with the
+    device tables built once per device)."""
+    def step(state: OfdmSyncState, block: torch.Tensor):
+        return sync_block(sync, state, block)
+    return step
+
+
+def sync_blocks_batched(sync: OfdmSync, state: OfdmSyncState,
+                        blocks: torch.Tensor):
+    """Multi-block batched dispatch: ``blocks [n_blocks, block_size]`` (or
+    IQ planes ``[2, n_blocks, block_size]``) -> ``(state', FrameResults
+    [n_blocks, max_frames])``: the one-channel case of
+    :func:`sync_channels_batched`, where each candidate decodes against its
+    own block's extended window, as the sequential steps see it."""
+    from ..ops.iqfmt import iq_from_any
+    states = OfdmSyncState(tail=state.tail[None], base=state.base[None])
+    states, res = sync_channels_batched(sync, states,
+                                        iq_from_any(blocks)[None])
+    return (OfdmSyncState(tail=states.tail[0], base=states.base[0]),
+            FrameResults(*(v[0] for v in res)))
+
+
 def extended_windows(sync: OfdmSync, tail: torch.Tensor,
                      chans: torch.Tensor):
     """``(full, exts)``: each channel's stream ``tail ++ blocks`` ``[N,
@@ -628,3 +659,54 @@ def sync_channels_batched(sync: OfdmSync, states: OfdmSyncState,
         tail=full[:, full.shape[-1] - sync.overlap:],
         base=states.base + n_blocks * bs)
     return new_states, res
+
+
+def debug_capture(sync: OfdmSync, stream, device=None) -> dict:
+    """One-shot capture of the synchronizer's internals for the strongest
+    detected candidate in ``stream`` (the framesync debug dump of the
+    reference).  ``stream`` is cut or zero-padded to ``block_size +
+    overlap`` samples; a NumPy stream goes to ``device`` (the default
+    device when ``None``).
+
+    Returns NumPy values: ``metric`` (the metric the detector runs:
+    ``_detect_metric_xcorr`` for the xcorr detector at levels 0 and 1, else
+    ``_detect_metric``, kernel B3 at levels 1 and 2), ``detected``, ``n0``,
+    ``cfo``, ``rssi``, ``header_valid``, ``H`` (the smoothed channel
+    estimate ``[M]``), ``hsyms_eq`` (equalized header points) and
+    ``psyms_eq`` (equalized payload points of this frame).  Never on the
+    hot path."""
+    from ..ops.iqfmt import iq_from_any
+    from ..utils.device import default_device
+    if not isinstance(stream, torch.Tensor):
+        stream = torch.as_tensor(np.asarray(stream),
+                                 device=default_device(device))
+    ext = iq_from_any(stream)
+    need = sync.block_size + sync.overlap
+    ext = torch.nn.functional.pad(ext, (0, max(0, need - ext.shape[-1])))
+    ext = ext[None, :need]
+    tables = sync_tables(sync, ext.device)
+    detected, locs, c_at = _detect_candidates(sync, ext, tables)
+    if sync.xcorr_detect and sync.use_pallas <= 1:
+        metric = _detect_metric_xcorr(sync, ext, tables)
+    else:
+        metric, _ = _detect_metric(sync, ext)
+    metric = metric[0].cpu().numpy()
+    det, lc = detected[0].cpu().numpy(), locs[0].cpu().numpy()
+    best = int(np.argmax(np.where(det, metric[lc], -1.0)))
+    win = _window_gather(ext, torch.zeros(1, dtype=torch.int64,
+                                          device=ext.device),
+                         locs[:, best], sync.overlap)
+    (_, points, _, _, _, _, _, hvalid, rssi, _, cfo,
+     dbg) = _decode_window(sync, tables, win, c_at[:, best], debug=True)
+    used = int(dbg["used_pts"][0])
+    return {
+        "metric": metric,
+        "detected": bool(det[best]),
+        "n0": int(lc[best]),
+        "cfo": float(cfo[0]),
+        "rssi": float(rssi[0]),
+        "header_valid": bool(hvalid[0]),
+        "H": dbg["H"][0].cpu().numpy(),
+        "hsyms_eq": dbg["hsyms_eq"][0].cpu().numpy(),
+        "psyms_eq": points[0, :max(used, 1)].cpu().numpy(),
+    }

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``liquid_usrp_tpu_torch/csrc/`` have a plain C interface;
-``nvcc`` compiles them for Hopper (``sm_90a``) into one shared library under
+``nvcc`` compiles each ``.cu`` file for Hopper (``sm_90a``), all of them at
+once in parallel, and links the objects into one shared library under
 ``build/kernels/`` at the repository root, named by a hash of the sources
-and flags, and ``ctypes`` loads it.  The build runs at first use, takes
+and flags; ``ctypes`` loads it.  The build runs at first use, takes
 seconds, and is reused while the sources are unchanged.  A missing
 compiler or a failed build raises; nothing falls back.
 """
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,11 @@ _SIGNATURES = {
     # segval, segarg, segcre, segcim, stream
     "detect_candidates_launch": [_VP, _I, _I, _I, _I, _I, _I, _F, _VP, _I,
                                  _I, _VP, _VP, _VP, _VP, _VP],
+    # ext, rows, len, lag, span, floors, n_out, metric, c, stream
+    "autocorr_metric_launch": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _VP],
+    # cre, cim, cp, rows, len, lag, span, floors, n_out, metric, c, stream
+    "autocorr_prefix_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP,
+                               _VP, _VP],
 }
 
 _LIB: list = []
@@ -75,14 +81,32 @@ def load_library() -> ctypes.CDLL:
     built = not out.exists()
     if built:
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
+        cus = [p for p in srcs if p.suffix == ".cu"]
+        objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in cus]
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for o, p in zip(objs, cus)]
+            outs = [(p.name, proc.communicate()[0], proc.returncode)
+                    for p, proc in zip(cus, procs)]
+            log = "".join(text for _, text, _ in outs)
+            bad = [f"{name} ({rc})" for name, _, rc in outs if rc != 0]
+            if bad:
+                raise RuntimeError(f"nvcc failed for {', '.join(bad)}:\n"
+                                   f"{log}")
+            proc = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            for o in [*objs, tmp]:
+                o.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

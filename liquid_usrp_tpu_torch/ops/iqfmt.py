@@ -1,6 +1,7 @@
 """Reduced-precision IQ ingest formats.
 
-Port of ``liquid_usrp_tpu/ops/iqfmt.py`` (``czeros`` and ``iq_from_any``).
+Port of ``liquid_usrp_tpu/ops/iqfmt.py`` (``iq_to_planes``,
+``iq_to_planes_sc8``, ``czeros`` and ``iq_from_any``).
 A "planes" array is real-valued ``[2, ...]`` (row 0 = I, row 1 = Q) in
 bfloat16/float16/float32 (already-scaled values) or int8/int16 full-scale
 wire codes (SC8: +-127 <-> +-1.0, SC16: +-32767 <-> +-1.0).  Steps accept a
@@ -11,10 +12,24 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["czeros", "iq_from_any", "SC8_FULL_SCALE", "SC16_FULL_SCALE"]
+__all__ = ["iq_to_planes", "iq_to_planes_sc8", "czeros", "iq_from_any",
+           "SC8_FULL_SCALE", "SC16_FULL_SCALE"]
 
 SC8_FULL_SCALE = 127.0
 SC16_FULL_SCALE = 32767.0
+
+
+def iq_to_planes(x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Complex stream ``[...]`` -> real planes ``[2, ...]`` (rounded)."""
+    return torch.stack([x.real, x.imag]).to(dtype)
+
+
+def iq_to_planes_sc8(x: torch.Tensor) -> torch.Tensor:
+    """Complex stream -> int8 wire-code planes ``[2, ...]``: the caller is
+    the AGC (``|I|, |Q| <= 1`` is full scale); values round half to even to
+    +-127 codes and out-of-range samples clip, as an 8-bit ADC would."""
+    planes = torch.stack([x.real, x.imag]) * SC8_FULL_SCALE
+    return torch.clamp(torch.round(planes), -127.0, 127.0).to(torch.int8)
 
 
 def czeros(shape, device="cpu") -> torch.Tensor:

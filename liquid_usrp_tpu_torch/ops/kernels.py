@@ -1,14 +1,22 @@
 """The detect front-end's hand-written CUDA kernels and their plain versions.
 
-Port of the two kernels of ``liquid_usrp_tpu/ops/pallas_kernels.py`` that
-the multichannel receiver runs:
+Port of the five kernels of ``liquid_usrp_tpu/ops/pallas_kernels.py``:
 
 * **B1** :func:`detect_metric_xcorr_onepass` — the segmented-coherent S0
   cross-correlation metric (``OfdmSync.use_pallas == 1``), CUDA source
   ``csrc/xcorr_metric.cu``;
 * **B2** :func:`detect_candidates_onepass` — the fused Schmidl-Cox metric,
   NMS and per-segment reduction, then a top-k over the segment maxima
-  (``use_pallas == 2``), CUDA source ``csrc/detect_candidates.cu``.
+  (``use_pallas == 2``), CUDA source ``csrc/detect_candidates.cu``;
+* **B3** :func:`detect_metric_onepass` — the Schmidl-Cox metric and lag
+  correlation ``(metric, c)`` at full rate (``use_pallas > 0`` with the
+  legacy detector, and below the fused kernel's M >= 32), CUDA source
+  ``csrc/autocorr_metric.cu``, plain version :func:`autocorr_metric`;
+* **B4** :func:`detect_metric_fused_2d` and **B5**
+  :func:`detect_metric_fused` — B3's ``(metric, c)`` as windowed
+  differences of float32 prefix sums, one CUDA kernel
+  ``csrc/autocorr_prefix.cu`` for both, plain version
+  :func:`autocorr_metric_prefix`.
 
 Each wrapper dispatches by the device of its input: a CUDA tensor launches
 the kernel (built on first use by :mod:`._build`) or raises; a CPU tensor
@@ -30,12 +38,17 @@ from . import corr
 
 __all__ = ["detect_metric_xcorr_onepass", "detect_metric_xcorr_plain",
            "detect_candidates_onepass", "detect_candidates_plain",
-           "autocorr_metric", "launches", "reset_launch_counts", "CAND_SEG"]
+           "detect_metric_onepass", "detect_metric_fused_2d",
+           "detect_metric_fused", "autocorr_metric", "autocorr_metric_prefix",
+           "launches", "reset_launch_counts", "CAND_SEG"]
 
 CAND_SEG = 64           # samples per reduced segment (= topk_peaks' seg)
 
 launches = {"detect_metric_xcorr_onepass": 0,
-            "detect_candidates_onepass": 0}
+            "detect_candidates_onepass": 0,
+            "detect_metric_onepass": 0,
+            "detect_metric_fused_2d": 0,
+            "detect_metric_fused": 0}
 
 
 def reset_launch_counts() -> None:
@@ -270,3 +283,115 @@ def detect_candidates_plain(ext: torch.Tensor, lag: int, span: int,
     vals, locs = corr.find_candidates(metric, win, T, threshold, k)
     idx = torch.clamp(locs.to(torch.int64), 0, c.shape[-1] - 1)
     return vals, locs, torch.gather(c, -1, idx)
+
+
+# ---------------------------------------------------------------------------
+# B3: the Schmidl-Cox metric at full rate; B4/B5: the same from prefix sums
+# ---------------------------------------------------------------------------
+
+def _metric_rows(name, plain, cuda, ext, lag, span, floor_scale):
+    """Dispatch of the ``(metric, c)`` kernels: ``[..., len]`` windows ->
+    ``(metric [..., n_out] float32, c [..., n_out] complex64)``, ``n_out =
+    len - span - lag + 1``.  A CPU tensor runs ``plain``; a CUDA tensor
+    runs ``cuda(x, lag, span, floor_scale, metric, c)`` on contiguous rows
+    into the outputs it is given, and counts one launch of ``name``."""
+    lead = ext.shape[:-1]
+    x = _check_rows(ext)
+    rows, length = x.shape
+    n_out = length - span - lag + 1
+    if lag < 1 or span < 1 or n_out < 1:
+        raise ValueError(f"rows of {length} samples give no output at lag "
+                         f"{lag}, span {span}")
+    if x.device.type == "cpu":
+        metric, c = plain(x, lag, span, floor_scale)
+    elif x.device.type == "cuda":
+        x = x.contiguous()
+        metric = torch.empty((rows, n_out), dtype=torch.float32,
+                             device=x.device)
+        c = torch.empty((rows, n_out), dtype=torch.complex64,
+                        device=x.device)
+        cuda(x, lag, span, floor_scale, metric, c)
+        launches[name] += 1
+    else:
+        raise RuntimeError(f"no kernel for device {x.device}")
+    return metric.reshape(*lead, n_out), c.reshape(*lead, n_out)
+
+
+def _autocorr_metric_cuda(x, lag, span, floor_scale, metric, c):
+    rows, length = x.shape
+    floors = _row_floor((x.real ** 2 + x.imag ** 2).sum(-1), length, span,
+                        floor_scale).contiguous()
+    _launch("autocorr_metric_launch", x, x.data_ptr(), rows, length, lag,
+            span, floors.data_ptr(), metric.shape[-1], metric.data_ptr(),
+            c.data_ptr())
+
+
+def detect_metric_onepass(ext: torch.Tensor, lag: int, span: int,
+                          floor_scale: float = 1e-4):
+    """Kernel B3: the Schmidl-Cox metric and lag correlation ``(metric,
+    c)`` for every offset of each window, as :func:`autocorr_metric`
+    defines them, summed tile-locally in float32 on the card."""
+    return _metric_rows("detect_metric_onepass", autocorr_metric,
+                        _autocorr_metric_cuda, ext, lag, span, floor_scale)
+
+
+def _prefix_sums(x: torch.Tensor, lag: int):
+    """Stage 1 of B4/B5, as XLA runs it before the JAX kernels: float32
+    prefix sums with a leading zero of the lag products' real and imaginary
+    parts (``[..., len - lag + 1]``) and of the power (``[..., len + 1]``),
+    and the power's row sum for the floor.  The JAX wrappers also
+    edge-pad these arrays to their tile raster; no valid output reads the
+    padding, so the port does not pad."""
+    prod = x[..., :-lag] * torch.conj(x[..., lag:])
+    p = x.real ** 2 + x.imag ** 2
+
+    def pre(v):
+        return torch.nn.functional.pad(torch.cumsum(v, dim=-1), (1, 0))
+    return pre(prod.real), pre(prod.imag), pre(p), p.sum(-1)
+
+
+def autocorr_metric_prefix(ext: torch.Tensor, lag: int, span: int,
+                           floor_scale: float = 1e-4):
+    """Plain version of B4/B5: :func:`autocorr_metric`'s ``(metric, c)``
+    taken as windowed differences of the float32 prefix sums of
+    :func:`_prefix_sums` (so its rounding is the JAX kernels', not the
+    float64 sums of :func:`autocorr_metric`)."""
+    cre, cim, cp, p_sum = _prefix_sums(ext, lag)
+    n_out = ext.shape[-1] - span - lag + 1
+
+    def diff(a, off):
+        return a[..., off + span:off + span + n_out] - a[..., off:off + n_out]
+    dre, dim = diff(cre, 0), diff(cim, 0)
+    e1, e2 = diff(cp, 0), diff(cp, lag)
+    metric = (dre * dre + dim * dim) / torch.clamp(e1 * e2, min=1e-12)
+    floor = _row_floor(p_sum, ext.shape[-1], span, floor_scale)[..., None]
+    metric = torch.where(torch.minimum(e1, e2) > floor, metric,
+                         torch.zeros_like(metric))
+    return metric, torch.complex(dre, dim)
+
+
+def _autocorr_prefix_cuda(x, lag, span, floor_scale, metric, c):
+    rows, length = x.shape
+    cre, cim, cp, p_sum = _prefix_sums(x, lag)
+    floors = _row_floor(p_sum, length, span, floor_scale).contiguous()
+    _launch("autocorr_prefix_launch", x, cre.data_ptr(), cim.data_ptr(),
+            cp.data_ptr(), rows, length, lag, span, floors.data_ptr(),
+            metric.shape[-1], metric.data_ptr(), c.data_ptr())
+
+
+def detect_metric_fused_2d(ext: torch.Tensor, lag: int, span: int,
+                           floor_scale: float = 1e-4):
+    """Kernel B4: B3's ``(metric, c)`` from float32 prefix sums.  Keeps
+    the JAX kernel's limit ``span + lag <= 128``."""
+    if span + lag > 128:
+        raise ValueError("2-D detect kernel requires span + lag <= 128")
+    return _metric_rows("detect_metric_fused_2d", autocorr_metric_prefix,
+                        _autocorr_prefix_cuda, ext, lag, span, floor_scale)
+
+
+def detect_metric_fused(ext: torch.Tensor, lag: int, span: int,
+                        floor_scale: float = 1e-4):
+    """Kernel B5: B3's ``(metric, c)`` from float32 prefix sums, any
+    span."""
+    return _metric_rows("detect_metric_fused", autocorr_metric_prefix,
+                        _autocorr_prefix_cuda, ext, lag, span, floor_scale)

@@ -1,15 +1,22 @@
-"""Profile of the PyTorch/CUDA port's main path on one CUDA device.
+"""Profile of the PyTorch/CUDA port's two paths on one CUDA device.
 
 Builds the bench mixture as ``chip_smoke.py`` does (N=4, M=48, 400-byte
-payloads, ``block_size=65536``, ``n_blocks=2``) and measures:
+payloads, ``block_size=65536``, ``n_blocks=2``) and the single-channel
+stream of ``chip_smoke.py`` (``ofdmflexframe_tx`` defaults, 40 frames), and
+measures:
 
-* per ported kernel: the wrapper's time (CUDA events over back-to-back
-  calls), the host time to enqueue one call, and the kernel's own device
-  time and the device kernels per call (``torch.profiler``);
-* per detect level (``use_pallas`` 0, 1, 2): the time of each stage (front
-  end, detect, candidate decode; CUDA events with a sync between them), the
-  step wall time, the device busy time and its share of the wall, device
-  kernels per step, peak device memory and the top device kernels.
+* per ported kernel, at its path's shapes (B1/B2 on the multichannel
+  windows, B3/B4/B5 on the single-channel path's first 8 windows): the
+  wrapper's time (CUDA events over back-to-back calls), the host time to
+  enqueue one call, and the kernel's own device time and the device
+  kernels per call (``torch.profiler``);
+* per detect level (``use_pallas`` 0, 1, 2) of the multichannel path: the
+  time of each stage (front end, detect, candidate decode; CUDA events with
+  a sync between them), the step wall time, the device busy time and its
+  share of the wall, device kernels per step, peak device memory and the
+  top device kernels;
+* per detect config of the single-channel path: the same for one 8-block
+  ``sync_blocks_batched`` dispatch with its results copied to the host.
 
 Steps after the first feed the same chunk from the carried state; their
 results are not checked (``chip_smoke.py`` checks decoding).  Prints one
@@ -22,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,6 +91,32 @@ def profile_kernels(s1, blocks, dev):
                 exts, d, L, cs.M, s1.block_size, s1.threshold,
                 s1.max_frames)),
     }
+    return _profile_calls(calls, exts, {
+        "b1_write": exts.shape[0] * (s1.block_size + 2 * cs.M + 1) * 4})
+
+
+def profile_sc_kernels(exts):
+    """B3, B4 and B5 on the single-channel path's first 8 windows."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    lag = cs.M // 4
+    span = 2 * cs.M - lag
+    calls = {name: (kname, lambda f=getattr(kernels, name): f(exts, lag,
+                                                                span))
+             for name, kname in (
+                 ("detect_metric_onepass", "autocorr_metric_kernel"),
+                 ("detect_metric_fused_2d", "autocorr_prefix_kernel"),
+                 ("detect_metric_fused", "autocorr_prefix_kernel"))}
+    rows, length = exts.shape
+    n_out = length - span - lag + 1
+    # B3 writes metric (4 B) and c (8 B) per output; B4/B5's kernel reads
+    # the three float32 prefix arrays once (most of its 8 loads per output
+    # hit the caches) and writes the same 12 B
+    return _profile_calls(calls, exts, {
+        "b3_write": rows * n_out * 12,
+        "prefix_read": rows * (2 * (length - lag + 1) + length + 1) * 4})
+
+
+def _profile_calls(calls, exts, nbytes):
     out = {}
     for name, (kname, fn) in calls.items():
         wrapper_ms = cs.cuda_ms(fn, 100)
@@ -102,8 +136,7 @@ def profile_kernels(s1, blocks, dev):
             device_kernels_per_call=sum(e.count for e in ev) / 20)
         print(name, json.dumps(out[name]), flush=True)
     rows, length = exts.shape
-    out["bytes"] = dict(ext_read=rows * length * 8,
-                        b1_write=rows * (s1.block_size + 2 * cs.M + 1) * 4)
+    out["bytes"] = dict(ext_read=rows * length * 8, **nbytes)
     print("bytes", json.dumps(out["bytes"]), flush=True)
     return out
 
@@ -165,6 +198,44 @@ def profile_level(level, params, blocks, dev, stage_steps=6, wall_steps=5,
     return rec
 
 
+def profile_sc_config(config, params, stream, dev, wall_calls=5,
+                      prof_calls=3):
+    """One 8-block dispatch of the single-channel path at one detect
+    config, from the initial state, results copied to the host: wall time,
+    device busy time and share, kernels and the top device kernels."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    xcorr, level = config
+    sync = ofdm_sync.make_sync(params, block_size=cs.SC_BLOCK,
+                               max_payload=cs.SC_MAX_PAYLOAD,
+                               use_pallas=level, xcorr_detect=xcorr)
+    blocks = torch.as_tensor(stream[:cs.SC_BATCH * cs.SC_BLOCK].reshape(
+        cs.SC_BATCH, cs.SC_BLOCK), device=dev)
+    st0 = ofdm_sync.sync_init(sync, dev)
+
+    def one():
+        _to_host(ofdm_sync.sync_blocks_batched(sync, st0, blocks)[1])
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(wall_calls):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / wall_calls
+    kev = _profile(one, prof_calls)
+    busy_ms = sum(_device_us(e) for e in kev) / prof_calls / 1e3
+    top = sorted(kev, key=_device_us, reverse=True)[:8]
+    rec = dict(dispatch_wall_ms=wall_ms, device_busy_ms=busy_ms,
+               busy_share_of_wall=busy_ms / wall_ms,
+               kernels_per_dispatch=sum(e.count for e in kev) / prof_calls,
+               top=[(e.key[:90], _device_us(e) / prof_calls / 1e3,
+                     e.count / prof_calls) for e in top])
+    print("single channel", config, json.dumps(rec), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_port.json"))
@@ -189,9 +260,15 @@ def main(argv=None) -> int:
              1j * nrng.normal(size=mixture.shape)).astype(np.complex64)
     blocks = torch.as_tensor((mixture + 0.01 * noise).reshape(-1),
                              device=dev)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        stream, _ = cs.sc_transmit(str(Path(tmpdir) / "sc.iq"))
     out["kernels"] = profile_kernels(s1, blocks, dev)
+    out["sc_kernels"] = profile_sc_kernels(cs.sc_windows(params, stream,
+                                                         dev))
     out["levels"] = {level: profile_level(level, params, blocks, dev)
                      for level in (0, 1, 2)}
+    out["sc_configs"] = {str(c): profile_sc_config(c, params, stream, dev)
+                         for c in cs.SC_CONFIGS}
     path = Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

@@ -8,7 +8,11 @@ file imports no JAX, so it also runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Tolerances: B1 max abs difference <= 1e-4; B2 ``detected`` equal, ``vals``
 atol 1e-4, the same set of detected offsets per row, and ``c_at`` within
-1e-4 of ``|c|`` of the plain lag correlation at the kernel's offsets.
+1e-4 of ``|c|`` of the plain lag correlation at the kernel's offsets.  B3
+vs :func:`kernels.autocorr_metric` (float64 window sums): metric max abs
+difference <= 1e-4, ``c`` within 1e-4 of max ``|c|``.  B4/B5 vs
+:func:`kernels.autocorr_metric_prefix` (the same float32 prefix sums):
+metric <= 1e-5, ``c`` within 1e-5 of max ``|c|``.
 """
 import numpy as np
 import pytest
@@ -72,3 +76,24 @@ def test_b2_kernel_matches_plain(loaded_cuda):
     c_ref = torch.gather(c_full, -1, loc.to(torch.int64))[det]
     assert float(((c[det] - c_ref).abs() / c_ref.abs()).max()) <= 1e-4
     assert kernels.launches["detect_candidates_onepass"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,plain,limit", [
+    ("detect_metric_onepass", "autocorr_metric", 1e-4),
+    ("detect_metric_fused_2d", "autocorr_metric_prefix", 1e-5),
+    ("detect_metric_fused", "autocorr_metric_prefix", 1e-5)])
+def test_autocorr_kernels_match_plain(loaded_cuda, name, plain, limit):
+    params, _, x = loaded_cuda
+    lag = params.M // 4
+    span = ofdm.NUM_S0 * params.M - lag
+    kernels.reset_launch_counts()
+    m, c = getattr(kernels, name)(x, lag, span)
+    torch.cuda.synchronize()
+    mr, cr = getattr(kernels, plain)(x, lag, span)
+    assert m.shape == c.shape == mr.shape == (x.shape[0], x.shape[1] - span
+                                              - lag + 1)
+    assert float(mr.max()) > 0.5                  # the frames are there
+    assert float((m - mr).abs().max()) <= limit
+    assert float((c - cr).abs().max()) <= limit * float(cr.abs().max())
+    assert kernels.launches[name] == 1

@@ -1,4 +1,4 @@
-"""The port's detect kernels B1/B2: plain versions vs the JAX kernels.
+"""The port's detect kernels B1-B5: plain versions vs the JAX kernels.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these
 tests hold that plain version against the JAX Pallas kernel run in
@@ -10,7 +10,10 @@ Tolerances: B1 plain vs JAX interpret atol 1e-5 (at M=48, and on a short
 zero-padded row); B1 plain vs the JAX FFT
 path atol 1e-3 (JAX documents ~3e-4 between those two).  B2 plain vs JAX
 interpret: ``detected`` equal, ``locs`` equal where detected (plateau-free
-input), ``vals`` atol 1e-5, ``c_at`` rtol 1e-4.
+input), ``vals`` atol 1e-5, ``c_at`` rtol 1e-4.  B3/B4/B5 plain vs JAX
+interpret on ``tests/test_pallas_kernels.py``'s loaded window: metric atol
+5e-4, ``c`` atol 2e-3 (that file's tolerances: float32 sums in another
+order); B4 raises where JAX raises.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,9 @@ from liquid_usrp_tpu_torch.framing import ofdm_sync as tsync
 from liquid_usrp_tpu_torch.ops import kernels
 
 BS = 4096
+METRIC_KERNELS = (kernels.detect_metric_onepass,
+                  kernels.detect_metric_fused_2d,
+                  kernels.detect_metric_fused)
 
 
 @pytest.fixture(scope="module", params=[48, 64])
@@ -131,12 +137,79 @@ def test_wrappers_dispatch_by_device():
     kernels.reset_launch_counts()
     kernels.detect_metric_xcorr_onepass(x, tmpl, 24, 4193)
     kernels.detect_candidates_onepass(x, 12, 84, 48, 4096, 0.5, 4)
-    assert kernels.launches == {"detect_metric_xcorr_onepass": 0,
-                                "detect_candidates_onepass": 0}
+    for fn in METRIC_KERNELS:
+        fn(x, 12, 84)
+    assert kernels.launches == dict.fromkeys(
+        ["detect_metric_xcorr_onepass", "detect_candidates_onepass",
+         "detect_metric_onepass", "detect_metric_fused_2d",
+         "detect_metric_fused"], 0)
     meta = x.to("meta")
     with pytest.raises(RuntimeError):
         kernels.detect_metric_xcorr_onepass(meta, tmpl, 24, 4193)
     with pytest.raises(RuntimeError):
         kernels.detect_candidates_onepass(meta, 12, 84, 48, 4096, 0.5, 4)
+    for fn in METRIC_KERNELS:
+        with pytest.raises(RuntimeError):
+            fn(meta, 12, 84)
+        with pytest.raises(ValueError):         # no output offset
+            fn(x[:90], 12, 84)
     with pytest.raises(ValueError):
         kernels.detect_metric_xcorr_onepass(x, tmpl[:95], 24, 4193)
+
+
+@pytest.fixture(scope="module")
+def pallas_ext():
+    """The window of ``tests/test_pallas_kernels.py::_loaded_ext`` (one
+    frame at 2000 in 0.02-rms noise, the same generator draws), with the
+    frame from the port's TX, at M = 48, 64 and 128, keyed by M."""
+    out = {}
+    for M in (48, 64, 128):
+        params = tofdm.make_ofdm_params(M, M // 8, 4)
+        sync = tsync.make_sync(params, block_size=4096, max_payload=128,
+                               max_frames=4)
+        rng = np.random.default_rng(0)
+        frame = tofdm.assemble_frame(
+            params, tofdm.default_props(),
+            torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+            torch.as_tensor(rng.integers(0, 256, 64, dtype=np.uint8))
+        ).numpy()
+        ext = np.zeros(sync.overlap + 4096, np.complex64)
+        ext[2000:2000 + len(frame)] = frame
+        ext += 0.02 * (rng.normal(size=len(ext)) +
+                       1j * rng.normal(size=len(ext)))
+        out[M] = ext.astype(np.complex64)
+    return out
+
+
+@pytest.mark.parametrize("name,M", [
+    ("detect_metric_onepass", 48), ("detect_metric_onepass", 64),
+    ("detect_metric_onepass", 128), ("detect_metric_fused_2d", 48),
+    ("detect_metric_fused", 48)])
+def test_b3_b4_b5_plain_match_jax_kernels(pallas_ext, name, M):
+    ext = pallas_ext[M]
+    lag = M // 4
+    span = jofdm.NUM_S0 * M - lag
+    kernels.reset_launch_counts()
+    metric, c = getattr(kernels, name)(torch.as_tensor(ext), lag, span)
+    jm, jc = getattr(jpk, name)(jnp.asarray(ext), lag, span, interpret=True)
+    assert metric.shape == c.shape == (len(ext) - span - lag + 1,)
+    assert metric.dtype == torch.float32 and c.dtype == torch.complex64
+    np.testing.assert_allclose(metric.numpy(), np.asarray(jm), atol=5e-4)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=2e-3)
+    assert int(metric.argmax()) == int(np.argmax(np.asarray(jm)))
+    # batched rows give each row's own result
+    two = torch.as_tensor(np.stack([ext, ext[::-1].copy()]))
+    bm, bc = getattr(kernels, name)(two, lag, span)
+    np.testing.assert_array_equal(bm[0].numpy(), metric.numpy())
+    np.testing.assert_array_equal(bc[0].numpy(), c.numpy())
+    assert kernels.launches[name] == 0
+
+
+def test_b4_span_limit_raises_as_jax(pallas_ext):
+    ext = pallas_ext[64]                      # span + lag = 128: allowed
+    kernels.detect_metric_fused_2d(torch.as_tensor(ext), 16, 112)
+    ext = pallas_ext[128]                     # span + lag = 256
+    with pytest.raises(ValueError):
+        jpk.detect_metric_fused_2d(jnp.asarray(ext), 32, 224, interpret=True)
+    with pytest.raises(ValueError):
+        kernels.detect_metric_fused_2d(torch.as_tensor(ext), 32, 224)

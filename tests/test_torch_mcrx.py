@@ -145,7 +145,8 @@ def test_state_conversion_roundtrip():
 
 
 def test_multichannel_rx_class_and_apps(tmp_path, capsys):
-    """MultichannelRx (execute + flush) loopback, and the CLI pair."""
+    """MultichannelRx (execute + flush) loopback, and the CLI pair, also
+    with ``--snr/--cfo`` impairments and the ``-d`` debug dump."""
     tx = tmc.MultichannelTx(N)
     rx = tmc.MultichannelRx(N, block_size=2048, max_payload=128)
     assert rx.sync.use_pallas == 1          # "auto" -> kernel B1
@@ -167,9 +168,17 @@ def test_multichannel_rx_class_and_apps(tmp_path, capsys):
                                  "-P", "60"]) == 0
     assert multichannel_rx.main(["-i", path, "-n", "2", "-q"]) == 0
     assert "valid packets       :      4 (100.00%)" in capsys.readouterr().out
-    for flag in (["--snr", "10"], ["-d", "dbg"]):
-        with pytest.raises(SystemExit):
-            multichannel_rx.main(["-i", path] + flag)
+    # virtual-channel impairments and the per-channel debug dump
+    dbg = str(tmp_path / "dbg")
+    assert multichannel_rx.main(["-i", path, "-n", "2", "-q", "--snr", "30",
+                                 "--cfo", "0.001", "--seed", "2",
+                                 "-d", dbg]) == 0
+    assert "valid packets       :      4 (100.00%)" in capsys.readouterr().out
+    for ch in range(2):
+        text = open(f"{dbg}_framesync_channel{ch}.m").read()
+        assert "detected=1 hdr_valid=1" in text and "H = [" in text
+    with pytest.raises(SystemExit):
+        multichannel_rx.main(["-i", path, "--bogus"])
     x = (rng.normal(size=300) + 1j * rng.normal(size=300)).astype(
         np.complex64)
     x[:100] = 0
