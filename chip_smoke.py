@@ -9,7 +9,11 @@ apps) at the app defaults:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``liquid_usrp_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it, with times.  B1 and B2 on the multichannel
+   shapes its path gives it, with times: the wrapper's and the plain
+   version's (CUDA events), and the kernel's own device time
+   (``torch.profiler`` over 100 launches) beside its bound (bytes over the
+   HBM rate or float32 operations over the float32 peak) and its share.
+   B1 and B2 on the multichannel
    windows (B1 max abs difference <= 1e-4; B2 ``detected`` identical,
    ``vals`` atol 1e-4, detected offsets equal or within 3 samples, and
    ``c_at`` within 1e-4 of ``|c|`` of the plain lag correlation at the
@@ -84,23 +88,35 @@ MAX_PAYLOAD = 512
 TIMED_STEPS = 10
 CFOS = (0.045, -0.04, 0.035, -0.05)    # rad/sample, per channel
 CFO_ATOL = 1.5e-3
+CAND_SEG = 64                  # outputs per segment of kernel B2
+# per wrapper: its detect level on the multichannel path, its source, the
+# TPU kernel it replaces and the name of its CUDA kernel (for the profiler)
 KERNELS = {
     "detect_metric_xcorr_onepass": dict(
         level=1, source="liquid_usrp_tpu_torch/csrc/xcorr_metric.cu",
-        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:616"),
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:616",
+        kernel="xcorr_metric_kernel"),
     "detect_candidates_onepass": dict(
         level=2, source="liquid_usrp_tpu_torch/csrc/detect_candidates.cu",
-        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:491"),
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:491",
+        kernel="detect_candidates_kernel"),
     "detect_metric_onepass": dict(
         level=None, source="liquid_usrp_tpu_torch/csrc/autocorr_metric.cu",
-        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:161"),
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:161",
+        kernel="autocorr_metric_kernel"),
     "detect_metric_fused_2d": dict(
         level=None, source="liquid_usrp_tpu_torch/csrc/autocorr_prefix.cu",
-        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:246"),
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:246",
+        kernel="autocorr_prefix_kernel"),
     "detect_metric_fused": dict(
         level=None, source="liquid_usrp_tpu_torch/csrc/autocorr_prefix.cu",
-        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:332"),
+        replaces="liquid_usrp_tpu/ops/pallas_kernels.py:332",
+        kernel="autocorr_prefix_kernel"),
 }
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores, at a 700 W limit
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+DEVICE_ITERS = 100             # launches per kernel-only device time
 # the single-channel path at the ofdmflexframe_tx/rx defaults
 SC_FRAMES, SC_PAYLOAD, SC_SEED = 40, 1200, 42
 SC_BLOCK, SC_BATCH, SC_MAX_PAYLOAD = 16384, 8, 2048
@@ -137,6 +153,74 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_us(fn, kernel: str, iters: int = DEVICE_ITERS) -> float:
+    """Mean device microseconds of the CUDA kernel named ``kernel`` over
+    ``iters`` back-to-back calls of ``fn`` (``torch.profiler``: the
+    kernel's own time on the card, without the wrapper's other work or
+    the host's launch gaps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in ev)
+    if n != iters:
+        raise AssertionError(f"profiler saw {n} launches of {kernel}, "
+                             f"expected {iters}")
+    return sum(getattr(e, "self_device_time_total", None) or
+               e.self_cuda_time_total for e in ev) / n
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms, what sets it): the bytes the function must move over
+    the HBM rate, or its float32 operations over the float32 peak."""
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def template_period(tmpl, span: int) -> int:
+    """The smallest divisor p of ``span`` with ``tmpl[i + p] == tmpl[i]``
+    everywhere (exactly), or 0 when the segments differ.  The S0 template
+    repeats with period M/4 (S0 sits on every 4th subcarrier)."""
+    t = np.asarray(tmpl)
+    for p in range(1, span + 1):
+        if span % p == 0 and np.array_equal(t[p:], t[:-p]):
+            return p
+    return 0
+
+
+def work(name, rows, length, **shape):
+    """(bytes, float32 operations) of one call at these shapes: each input
+    read once and each output written once; operations as the function
+    needs them on this run's data.  B1: with a template of period p (a
+    divisor of the span), one p-tap correlation z per sample (8 per complex
+    tap) serves every segment, which adds span/p values of z; otherwise 8
+    per tap of every segment; then per segment |u|^2, the energy scale, the
+    divide, the floor gate and the sum, and per sample |x|^2, a running
+    span-window power sum and the mean.  B2/B3: the lag product, power and
+    three window sums as running sums, the metric and, for B2, the NMS max;
+    B4/B5: four window differences and the metric."""
+    x = rows * length * 8
+    if name == "detect_metric_xcorr_onepass":
+        n, tmpl, span = shape["n_metric"], shape["tmpl"], shape["span"]
+        n_seg, p = len(tmpl) // span, template_period(tmpl, span)
+        corr = 8 * p + n_seg * 2 * (span // p - 1) if p else 8 * len(tmpl)
+        return x + rows * n * 4, rows * n * (corr + 7 * n_seg + 6)
+    n_out = length - shape["span"] - shape["lag"] + 1
+    if name == "detect_candidates_onepass":
+        n_seg = -(-n_out // CAND_SEG)
+        return x + rows * n_seg * 16, rows * n_out * 25
+    if name == "detect_metric_onepass":
+        return x + rows * n_out * 12, rows * n_out * 21
+    prefix = rows * (2 * (length - shape["lag"] + 1) + length + 1) * 4
+    return prefix + rows * n_out * 12, rows * n_out * 10
 
 
 def build_mixture(params, props, total, margin, dev, cfos=None):
@@ -292,21 +376,38 @@ def check_kernels(sync, rx, blocks):
         raise AssertionError(f"B2 c_at disagrees with the plain lag "
                              f"correlation: {c_rel}")
 
-    times = {
-        "detect_metric_xcorr_onepass": (
-            cuda_ms(lambda: kernels.detect_metric_xcorr_onepass(*b1_args),
-                    50),
-            cuda_ms(lambda: kernels.detect_metric_xcorr_plain(*b1_args), 10),
-            b1_err),
-        "detect_candidates_onepass": (
-            cuda_ms(lambda: kernels.detect_candidates_onepass(*b2_args), 50),
-            cuda_ms(lambda: kernels.detect_candidates_plain(*b2_args), 10),
-            b2_err),
-    }
-    for name, (ms, plain_ms, _) in times.items():
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({tuple(exts.shape)} rows)", flush=True)
-    return times
+    rows, length = exts.shape
+    return {
+        "detect_metric_xcorr_onepass": timed(
+            "detect_metric_xcorr_onepass",
+            kernels.detect_metric_xcorr_onepass,
+            kernels.detect_metric_xcorr_plain, b1_args, b1_err,
+            work("detect_metric_xcorr_onepass", rows, length,
+                 n_metric=n_metric, tmpl=tmpl, span=span),
+            exts.shape),
+        "detect_candidates_onepass": timed(
+            "detect_candidates_onepass", kernels.detect_candidates_onepass,
+            kernels.detect_candidates_plain, b2_args, b2_err,
+            work("detect_candidates_onepass", rows, length, span=L, lag=d),
+            exts.shape)}
+
+
+def timed(name, fn, plain, args, err, nbytes_flops, shape):
+    """The wrapper ``fn(*args)``'s and the plain version's times (CUDA
+    events), the kernel's device time alone (profiler) and its bound: one
+    entry of the kernels line."""
+    ms = cuda_ms(lambda: fn(*args), 50)
+    plain_ms = cuda_ms(lambda: plain(*args), 10)
+    dev_us = kernel_device_us(lambda: fn(*args), KERNELS[name]["kernel"])
+    bound_ms, bound_by = bound(*nbytes_flops)
+    print(f"{name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; kernel "
+          f"alone {dev_us:.2f} us on the device, bound {bound_ms * 1e3:.2f} "
+          f"us by {bound_by} ({nbytes_flops[0] / 1e6:.2f} MB, "
+          f"{nbytes_flops[1] / 1e6:.1f} MFLOP): it reaches "
+          f"{bound_ms * 1e3 / dev_us:.1%} of the bound ({tuple(shape)} rows)",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                kernel_ms=dev_us * 1e-3, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def run_level(level, params, mixes, flush, weights, expected, dev, label):
@@ -425,11 +526,9 @@ def check_autocorr_kernels(exts):
               f"{limit}), metric peak {float(mr.max()):.4f}", flush=True)
         if not (err <= limit and c_rel <= limit and m.shape == mr.shape):
             raise AssertionError(f"{name} disagrees with its plain version")
-        ms = cuda_ms(lambda: fn(exts, lag, span), 50)
-        plain_ms = cuda_ms(lambda: plain(exts, lag, span), 10)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({tuple(exts.shape)} rows)", flush=True)
-        stats[name] = (ms, plain_ms, err)
+        stats[name] = timed(name, fn, plain, (exts, lag, span), err,
+                            work(name, *exts.shape, span=span, lag=lag),
+                            exts.shape)
     return stats
 
 
@@ -752,11 +851,16 @@ def main() -> int:
                                  f"{launches[name]} times by the paths")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    print("kernel device time (us), bound (us, by), share: " + "; ".join(
+        f"{name} {t['kernel_ms'] * 1e3:.2f}, {t['bound_ms'] * 1e3:.2f} "
+        f"({t['bound_by']}), {t['bound_ms'] / t['kernel_ms']:.1%}"
+        for name, t in times.items()), flush=True)
+    # ms: the wrapper; kernel_ms: the CUDA kernel alone on the device.  No
+    # single PyTorch call computes any of these metrics: library_ms null.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
-         "max_abs_err": times[name][2], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         **times[name], "library_ms": None}
         for name, k in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

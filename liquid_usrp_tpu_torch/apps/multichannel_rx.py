@@ -3,8 +3,8 @@
 Port of ``liquid_usrp_tpu/apps/multichannel_rx.py``: per-frame line with
 the channel id recovered from header byte 2, then aggregate stats, the
 virtual-channel impairments (``--snr/--cfo/--delay/--seed``) and a debug
-dump per channel (``-d``).  Runs on the first CUDA device when there is
-one.
+dump per channel (``-d``).  Runs on the first CUDA device
+(``LIQUID_USRP_TORCH_DEVICE=cpu`` asks for the CPU).
 
     python -m liquid_usrp_tpu_torch.apps.multichannel_rx -i mc.iq -n 2
 """

@@ -2,8 +2,8 @@
 
 Port of ``liquid_usrp_tpu/apps/multichannel_tx.py`` (same flags): keeps
 every channel saturated with random packets, packet id + channel id stamped
-in header bytes 0-2, gain divided by N.  Runs on the first CUDA device when
-there is one.
+in header bytes 0-2, gain divided by N.  Runs on the first CUDA device
+(``LIQUID_USRP_TORCH_DEVICE=cpu`` asks for the CPU).
 
     python -m liquid_usrp_tpu_torch.apps.multichannel_tx -o mc.iq -n 2 -N 3
 """

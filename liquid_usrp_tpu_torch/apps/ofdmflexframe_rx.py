@@ -2,7 +2,8 @@
 
 Port of ``liquid_usrp_tpu/apps/ofdmflexframe_rx.py`` (same flags): a line
 per frame (RSSI, EVM, CFO, header and payload status), then the aggregate
-stats.  Runs on the first CUDA device when there is one.  ``--conv`` and
+stats.  Runs on the first CUDA device (``LIQUID_USRP_TORCH_DEVICE=cpu``
+asks for the CPU).  ``--conv`` and
 ``--soft`` need the convolutional/RS FEC and the soft decoder, which are
 not ported yet: they are rejected with an error.
 

@@ -1,5 +1,6 @@
-// The tile stage of the S0 periodicity (Schmidl-Cox) metric, shared by
-// kernels B2 (detect_candidates.cu) and B3 (autocorr_metric.cu):
+// The tile stage of the S0 periodicity (Schmidl-Cox) metric of kernel B3
+// (autocorr_metric.cu; B2 has its own chunked stage in
+// detect_candidates.cu):
 //
 //   c[m]  = sum_{i<span} x[m+i] * conj(x[m+i+lag])
 //   e1[m] = sum_{i<span} |x[m+i]|^2,   e2[m] = e1[m+lag]

@@ -9,19 +9,29 @@
 //   r_s[n] = |u_s|^2 / max(E_s * ea_s, 1e-12), or 0 where E_s <= floor
 //   metric[n] = mean_s r_s[n]
 //
-// What bounds it on the card: the roof is device-memory traffic.  Each
-// output reads one complex64 sample (8 B) and writes one float (4 B); the
-// 96 complex MACs per output at the default M=48 are far below the compute
-// roof.  The design keeps every reuse on chip: a block stages its tile of
-// the stream plus the (n_tmpl - 1)-sample halo once, as separate
-// re/im/power planes in shared memory (consecutive threads read
-// consecutive words, no bank conflicts), so the stream is read from device
-// memory about once.  The template taps and segment energies sit in
-// __constant__ memory: every thread of a warp reads the same tap in the
-// same cycle, which the constant cache broadcasts.  One thread computes one
-// output.  That costs 3 shared-memory loads per tap per output (about 290
-// at M=48), and those loads, not device memory, limit this simple design:
-// it runs well above the memory-traffic bound (PERF.md has the numbers).
+// What bounds the function on the card: device-memory traffic, 8 B read
+// and 4 B written per output.  The S0 template repeats with period M/4, so
+// one M/4-tap correlation per sample could serve every segment; this
+// kernel does not fold the period yet.  It runs the direct form, n_tmpl
+// complex multiply-adds per output (96 at M=48, 4 FMAs each), and the
+// design makes that loop FMA-bound:
+//
+// * Register tiling.  A thread computes XC_R consecutive outputs.  It keeps
+//   a sliding window of 2 * XC_R samples in registers, so one shared-memory
+//   load of a sample feeds XC_R outputs (4 * XC_R FMAs).  The taps, padded
+//   per segment to a multiple of XC_R with zeros (a zero tap adds nothing),
+//   sit in __constant__ memory: every lane reads the same tap in the same
+//   step, which the constant cache broadcasts.
+// * Bank conflicts.  XC_R consecutive outputs per thread make lanes read at
+//   a stride of XC_R samples; the tile stores sample i at i + i / 8, so the
+//   stride becomes 9 float2 and the lanes of a half warp hit distinct banks.
+// * Segment energies.  E_s[n] = W[n + s*span], where W is the span-window
+//   power sum, computed once per tile (register-tiled the same way) in the
+//   plain version's order (|x|^2 rounded as x.re^2 + x.im^2, then summed
+//   tap by tap), so the floor decisions equal the plain version's.
+// * Wide tiles: XC_R * XC_THREADS = 2,048 outputs per block against a halo
+//   of n_tmpl - 1 (+ padding) samples, staged with cp.async.  Results leave
+//   through shared memory as coalesced stores.
 //
 // The floor per row is computed by the wrapper (ops/kernels.py) exactly as
 // the JAX wrapper does.  Beyond the end of a row the stream reads as zero
@@ -30,65 +40,188 @@
 
 #include <cstring>
 
-#define XC_TILE 256
-#define XC_MAX_TMPL 2048
+#define XC_R 8            // outputs per thread
+#define XC_WR 9           // span-window power sums per thread (one pass)
+#define XC_THREADS 256
+#define XC_TO (XC_R * XC_THREADS)  // outputs per block
+#define XC_MAX_TAPS 4096  // padded taps
 #define XC_MAX_SEG 256
 
-__constant__ float c_tre[XC_MAX_TMPL];
-__constant__ float c_tim[XC_MAX_TMPL];
+__constant__ float c_tre[XC_MAX_TAPS];
+__constant__ float c_tim[XC_MAX_TAPS];
 __constant__ float c_ea[XC_MAX_SEG];
 
-__global__ void __launch_bounds__(XC_TILE)
-xcorr_metric_kernel(const float2* __restrict__ ext, int len, int n_tmpl,
-                    int span, int n_seg, int n_metric,
+// Shared-memory slot of tile sample (or W offset) i: one pad slot per 8.
+__host__ __device__ inline int xc_phys(int i) { return i + (i >> 3); }
+
+// Staged samples and W offsets of one tile.
+__host__ __device__ inline int xc_nx(int span, int n_seg, int sp) {
+  return XC_TO + (n_seg - 1) * span + sp + 3 * XC_R + XC_WR;
+}
+__host__ __device__ inline int xc_nw(int span, int n_seg) {
+  return XC_TO + (n_seg - 1) * span;
+}
+
+__device__ inline float xc_power(float2 v) {  // as the plain version rounds
+  return __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+}
+
+// SPAN, NSEG > 0: the segment length and count as compile-time constants,
+// so every tap loop unrolls and every tap is an immediate __constant__
+// operand of its FMA; 0, 0: the same kernel for any template, taking them
+// from span_rt, n_seg_rt.
+template <int SPAN, int NSEG>
+__global__ void __launch_bounds__(XC_THREADS, 2)
+xcorr_metric_kernel(const float2* __restrict__ ext, int len, int span_rt,
+                    int n_seg_rt, int n_metric,
                     const float* __restrict__ floors,
                     float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int width = XC_TILE + n_tmpl - 1;
-  float* xr = smem;
-  float* xi = xr + width;
-  float* pw = xi + width;
+  extern __shared__ __align__(16) float smem[];
+  const int span = SPAN ? SPAN : span_rt;
+  const int n_seg = NSEG ? NSEG : n_seg_rt;
+  const int sp = (span + XC_R - 1) / XC_R * XC_R;  // padded taps a segment
+  const int nx = xc_nx(span, n_seg, sp);
+  const int nw = xc_nw(span, n_seg);
+  float2* X = reinterpret_cast<float2*>(smem);  // xc_phys(nx) + 1
+  float* W = smem + 2 * (xc_phys(nx) + 1);      // xc_phys(nw) + 1
+  const int tid = threadIdx.x;
   const int row = blockIdx.y;
-  const long long base = (long long)row * len;
-  const int n0 = blockIdx.x * XC_TILE;
-  for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    const int g = n0 + i;
-    const float2 v = (g < len) ? ext[base + g] : make_float2(0.f, 0.f);
-    xr[i] = v.x;
-    xi[i] = v.y;
-    pw[i] = v.x * v.x + v.y * v.y;
+  const int n0 = blockIdx.x * XC_TO;
+  const float2* rp = ext + (long long)row * len;
+
+  // 1. Stage samples [n0, n0 + nx) with 8-byte cp.async copies; beyond
+  //    the row end the copy reads nothing and fills zeros.
+  for (int i = tid; i < nx; i += XC_THREADS) {
+    const int gi = n0 + i;
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(X + xc_phys(i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(rp + (gi < len ? gi : 0)), "r"(gi < len ? 8 : 0)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // 2. W[q] = sum_{j<span} |x[q+j]|^2 for q < nw, XC_WR offsets a thread
+  //    (one pass at the usual spans), summed tap by tap.
+  for (int c = tid; c * XC_WR < nw; c += XC_THREADS) {
+    const int b0 = c * XC_WR;
+    float acc[XC_WR], p[XC_WR], p2[XC_WR];
+#pragma unroll
+    for (int k = 0; k < XC_WR; ++k) {
+      acc[k] = 0.f;
+      p[k] = xc_power(X[xc_phys(b0 + k)]);
+    }
+#pragma unroll
+    for (int jb = 0; jb < span; jb += XC_WR) {
+#pragma unroll
+      for (int k = 0; k < XC_WR; ++k)
+        p2[k] = xc_power(X[xc_phys(b0 + jb + XC_WR + k)]);
+#pragma unroll
+      for (int jj = 0; jj < XC_WR; ++jj) {
+        if (jb + jj < span) {
+#pragma unroll
+          for (int k = 0; k < XC_WR; ++k)
+            acc[k] = __fadd_rn(acc[k], jj + k < XC_WR ? p[jj + k]
+                                                      : p2[jj + k - XC_WR]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < XC_WR; ++k) p[k] = p2[k];
+    }
+#pragma unroll
+    for (int k = 0; k < XC_WR; ++k)
+      if (b0 + k < nw) W[xc_phys(b0 + k)] = acc[k];
   }
   __syncthreads();
-  const int t = threadIdx.x;
-  const int n = n0 + t;
-  if (n >= n_metric) return;
+
+  // 3. The correlation of XC_R consecutive outputs per thread; with
+  //    base = XC_R * tid, slot xc_phys(base + m) is 9 * tid + xc_phys(m).
+  const float2* Xt = X + 9 * tid;
+  const float* Wt = W + 9 * tid;
   const float floor_v = floors[row];
-  float acc = 0.f;
+  float macc[XC_R];
+#pragma unroll
+  for (int k = 0; k < XC_R; ++k) macc[k] = 0.f;
+  // the register window: samples [o + jb, o + jb + 2 XC_R) of segment s
+  // at tap block jb; the block after it is loaded one block ahead
+  float2 w[XC_R], w2[XC_R];
+#pragma unroll
   for (int s = 0; s < n_seg; ++s) {
     const int o = s * span;
-    float ure = 0.f, uim = 0.f, es = 0.f;
-    for (int j = 0; j < span; ++j) {
-      const float a = xr[t + o + j];
-      const float b = xi[t + o + j];
-      const float tr = c_tre[o + j];
-      const float ti = c_tim[o + j];
-      ure += tr * a + ti * b;  // conj(t) * x
-      uim += tr * b - ti * a;
-      es += pw[t + o + j];
+    float ur[XC_R], ui[XC_R];
+#pragma unroll
+    for (int k = 0; k < XC_R; ++k) ur[k] = ui[k] = 0.f;
+    // without padding the window of the last block runs on into the next
+    // segment's first two blocks
+    if (s == 0 || sp != span) {
+#pragma unroll
+      for (int k = 0; k < XC_R; ++k) {
+        w[k] = Xt[xc_phys(o + k)];
+        w2[k] = Xt[xc_phys(o + XC_R + k)];
+      }
     }
-    const float r = (ure * ure + uim * uim) / fmaxf(es * c_ea[s], 1e-12f);
-    acc += (es > floor_v) ? r : 0.f;
+#pragma unroll
+    for (int jb = 0; jb < sp; jb += XC_R) {
+      float2 w3[XC_R];
+#pragma unroll
+      for (int k = 0; k < XC_R; ++k)
+        w3[k] = Xt[xc_phys(o + jb + 2 * XC_R + k)];
+#pragma unroll
+      for (int jj = 0; jj < XC_R; ++jj) {
+        const float tr = c_tre[s * sp + jb + jj];
+        const float ti = c_tim[s * sp + jb + jj];
+#pragma unroll
+        for (int k = 0; k < XC_R; ++k) {
+          const float2 v = jj + k < XC_R ? w[jj + k] : w2[jj + k - XC_R];
+          ur[k] = fmaf(tr, v.x, fmaf(ti, v.y, ur[k]));  // conj(t) * x
+          ui[k] = fmaf(tr, v.y, fmaf(-ti, v.x, ui[k]));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < XC_R; ++k) {
+        w[k] = w2[k];
+        w2[k] = w3[k];
+      }
+    }
+    const float ea = c_ea[s];
+#pragma unroll
+    for (int k = 0; k < XC_R; ++k) {
+      const float es = Wt[xc_phys(o + k)];
+      const float r =
+          __fdividef(ur[k] * ur[k] + ui[k] * ui[k], fmaxf(es * ea, 1e-12f));
+      macc[k] += (es > floor_v) ? r : 0.f;
+    }
   }
-  out[(long long)row * n_metric + n] = acc / (float)n_seg;
+  __syncthreads();  // every thread is done with the staged samples
+
+  // 4. Results through shared memory, stored coalesced.
+  float* ob = smem;
+#pragma unroll
+  for (int k = 0; k < XC_R; ++k)
+    ob[9 * tid + k] = macc[k] / (float)n_seg;
+  __syncthreads();
+  float* orow = out + (long long)row * n_metric;
+  for (int i = tid; i < XC_TO && n0 + i < n_metric; i += XC_THREADS)
+    orow[n0 + i] = ob[xc_phys(i)];
+}
+
+typedef void (*XcKernel)(const float2*, int, int, int, int, const float*,
+                         float*);
+
+// The instantiation for a segment length and count: the template of
+// M = 48 (24 x 4), the one the paths run, else the generic one.
+static XcKernel xc_kernel(int span, int n_seg) {
+  if (span == 24 && n_seg == 4) return xcorr_metric_kernel<24, 4>;
+  return xcorr_metric_kernel<0, 0>;
 }
 
 // Host mirror of what __constant__ memory holds on each device, so the
 // template is copied only when it changes.
 static int g_dev = -1;
-static int g_n_tmpl = -1;
+static int g_taps = -1;
 static int g_n_seg = -1;
-static float g_tre[XC_MAX_TMPL];
-static float g_tim[XC_MAX_TMPL];
+static float g_tre[XC_MAX_TAPS];
+static float g_tim[XC_MAX_TAPS];
 static float g_ea[XC_MAX_SEG];
 
 // ext: [rows, len] complex64 (interleaved float pairs) on the device.
@@ -101,23 +234,34 @@ extern "C" int xcorr_metric_launch(const void* ext, int rows, int len,
                                    int n_metric, const void* floors,
                                    void* out, void* stream) {
   if (rows <= 0 || len <= 0 || span <= 0 || n_tmpl <= 0 ||
-      n_tmpl % span != 0 || n_tmpl > XC_MAX_TMPL ||
-      n_tmpl / span > XC_MAX_SEG || n_metric <= 0 || rows > 65535)
+      n_tmpl % span != 0 || n_tmpl / span > XC_MAX_SEG || n_metric <= 0 ||
+      rows > 65535)
     return (int)cudaErrorInvalidValue;
   const int n_seg = n_tmpl / span;
+  const int sp = (span + XC_R - 1) / XC_R * XC_R;  // padded taps a segment
+  const int taps = n_seg * sp;
+  if (taps > XC_MAX_TAPS) return (int)cudaErrorInvalidValue;
+  // the template, each segment padded with zero taps to sp
+  static float h_tre[XC_MAX_TAPS], h_tim[XC_MAX_TAPS];
+  memset(h_tre, 0, sizeof(float) * taps);
+  memset(h_tim, 0, sizeof(float) * taps);
+  for (int s = 0; s < n_seg; ++s) {
+    memcpy(h_tre + s * sp, tre + s * span, sizeof(float) * span);
+    memcpy(h_tim + s * sp, tim + s * span, sizeof(float) * span);
+  }
   cudaStream_t st = (cudaStream_t)stream;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t tb = sizeof(float) * (size_t)n_tmpl;
+  const size_t tb = sizeof(float) * (size_t)taps;
   const size_t eb = sizeof(float) * (size_t)n_seg;
-  if (dev != g_dev || n_tmpl != g_n_tmpl || n_seg != g_n_seg ||
-      memcmp(tre, g_tre, tb) || memcmp(tim, g_tim, tb) ||
+  if (dev != g_dev || taps != g_taps || n_seg != g_n_seg ||
+      memcmp(h_tre, g_tre, tb) || memcmp(h_tim, g_tim, tb) ||
       memcmp(ea, g_ea, eb)) {
-    err = cudaMemcpyToSymbolAsync(c_tre, tre, tb, 0,
+    err = cudaMemcpyToSymbolAsync(c_tre, h_tre, tb, 0,
                                   cudaMemcpyHostToDevice, st);
     if (err == cudaSuccess)
-      err = cudaMemcpyToSymbolAsync(c_tim, tim, tb, 0,
+      err = cudaMemcpyToSymbolAsync(c_tim, h_tim, tb, 0,
                                     cudaMemcpyHostToDevice, st);
     if (err == cudaSuccess)
       err = cudaMemcpyToSymbolAsync(c_ea, ea, eb, 0,
@@ -127,22 +271,27 @@ extern "C" int xcorr_metric_launch(const void* ext, int rows, int len,
       return (int)err;
     }
     g_dev = dev;
-    g_n_tmpl = n_tmpl;
+    g_taps = taps;
     g_n_seg = n_seg;
-    memcpy(g_tre, tre, tb);
-    memcpy(g_tim, tim, tb);
+    memcpy(g_tre, h_tre, tb);
+    memcpy(g_tim, h_tim, tb);
     memcpy(g_ea, ea, eb);
   }
-  const size_t smem = sizeof(float) * 3 * (size_t)(XC_TILE + n_tmpl - 1);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(xcorr_metric_kernel,
+  const size_t smem =
+      sizeof(float) * (2 * (size_t)(xc_phys(xc_nx(span, n_seg, sp)) + 1) +
+                       (size_t)(xc_phys(xc_nw(span, n_seg)) + 1));
+  const XcKernel kern = xc_kernel(span, n_seg);
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((n_metric + XC_TILE - 1) / XC_TILE, rows);
-  xcorr_metric_kernel<<<grid, XC_TILE, smem, st>>>(
-      (const float2*)ext, len, n_tmpl, span, n_seg, n_metric,
-      (const float*)floors, (float*)out);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_metric + XC_TO - 1) / XC_TO, rows);
+  kern<<<grid, XC_THREADS, smem, st>>>((const float2*)ext, len, span, n_seg,
+                                       n_metric, (const float*)floors,
+                                       (float*)out);
   return (int)cudaGetLastError();
 }

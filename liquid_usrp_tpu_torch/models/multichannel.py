@@ -51,7 +51,7 @@ class MctxState(NamedTuple):
 def make_mctx_step(num_channels: int, device=None):
     """``(init_state, step)`` for the synthesis side: ``step(state,
     Y[B, 2N]) -> (state', y[2N*B])`` (channels in bins 0..N-1).
-    ``device=None``: the first CUDA device when there is one."""
+    ``device=None``: ``utils.device.default_device()``."""
     N = num_channels
     device = default_device(device)
     chz = pfb_mod.pfbch_create(2 * N, m=13, As=60.0)
@@ -160,8 +160,8 @@ class Mcrx(torch.nn.Module):
     single-block step of :func:`make_mcrx_step` (results ``[N,
     max_frames]``); an integer gives :func:`make_mcrx_batched_step`'s
     results ``[N, n_blocks, max_frames]``.  ``device=None`` (the default of
-    every RX and TX entry here) is the first CUDA device when there is one,
-    else the CPU."""
+    every RX and TX entry here) is ``utils.device.default_device()``: the
+    first CUDA device, else it raises."""
 
     def __init__(self, num_channels: int, sync: ofdm_sync.OfdmSync,
                  n_blocks: int | None = None, device=None):

@@ -9,8 +9,9 @@ as dict rows and to a callback.  Runs of ``batch_blocks`` full blocks go
 through ``ofdm_sync.sync_blocks_batched`` in one dispatch, the rest through
 the single-block step; each dispatch copies its results to the host once.
 
-The transceiver runs on ``device`` (the first CUDA device when there is
-one, else the CPU).  Its synchronizer resolves ``use_pallas="auto"`` to 1:
+The transceiver runs on ``device`` (by default the first CUDA device; it
+raises without one unless ``LIQUID_USRP_TORCH_DEVICE`` names another, see
+``utils/device.py``).  Its synchronizer resolves ``use_pallas="auto"`` to 1:
 kernel B1 detects, and :meth:`OfdmTxRx.debug_print` takes its metric from
 kernel B3.
 """

@@ -8,8 +8,10 @@ measures:
 * per ported kernel, at its path's shapes (B1/B2 on the multichannel
   windows, B3/B4/B5 on the single-channel path's first 8 windows): the
   wrapper's time (CUDA events over back-to-back calls), the host time to
-  enqueue one call, and the kernel's own device time and the device
-  kernels per call (``torch.profiler``);
+  enqueue one call, the kernel's own device time and the device kernels
+  per call (``torch.profiler``), and the kernel's bound (its bytes over
+  the HBM rate or its float32 operations over the float32 peak, as
+  ``chip_smoke.py`` counts them) with the share of it the kernel reaches;
 * per detect level (``use_pallas`` 0, 1, 2) of the multichannel path: the
   time of each stage (front end, detect, candidate decode; CUDA events with
   a sync between them), the step wall time, the device busy time and its
@@ -91,8 +93,14 @@ def profile_kernels(s1, blocks, dev):
                 exts, d, L, cs.M, s1.block_size, s1.threshold,
                 s1.max_frames)),
     }
-    return _profile_calls(calls, exts, {
-        "b1_write": exts.shape[0] * (s1.block_size + 2 * cs.M + 1) * 4})
+    rows, length = exts.shape
+    work = {
+        "detect_metric_xcorr_onepass": cs.work(
+            "detect_metric_xcorr_onepass", rows, length,
+            n_metric=s1.block_size + 2 * cs.M + 1, tmpl=tmpl, span=span),
+        "detect_candidates_onepass": cs.work(
+            "detect_candidates_onepass", rows, length, span=L, lag=d)}
+    return _profile_calls(calls, work)
 
 
 def profile_sc_kernels(exts):
@@ -106,17 +114,15 @@ def profile_sc_kernels(exts):
                  ("detect_metric_onepass", "autocorr_metric_kernel"),
                  ("detect_metric_fused_2d", "autocorr_prefix_kernel"),
                  ("detect_metric_fused", "autocorr_prefix_kernel"))}
-    rows, length = exts.shape
-    n_out = length - span - lag + 1
-    # B3 writes metric (4 B) and c (8 B) per output; B4/B5's kernel reads
-    # the three float32 prefix arrays once (most of its 8 loads per output
-    # hit the caches) and writes the same 12 B
-    return _profile_calls(calls, exts, {
-        "b3_write": rows * n_out * 12,
-        "prefix_read": rows * (2 * (length - lag + 1) + length + 1) * 4})
+    return _profile_calls(calls, {name: cs.work(name, *exts.shape,
+                                                span=span, lag=lag)
+                                  for name in calls})
 
 
-def _profile_calls(calls, exts, nbytes):
+def _profile_calls(calls, work):
+    """Per kernel: wrapper and host times, device time alone, and the bound
+    (``chip_smoke.work`` bytes and operations at the published peaks) with
+    the share of it the kernel reaches."""
     out = {}
     for name, (kname, fn) in calls.items():
         wrapper_ms = cs.cuda_ms(fn, 100)
@@ -128,16 +134,18 @@ def _profile_calls(calls, exts, nbytes):
         torch.cuda.synchronize()
         ev = _profile(fn, 20)
         kern = [e for e in ev if kname in e.key]
+        dev_us = sum(_device_us(e) for e in kern) / max(
+            1, sum(e.count for e in kern))
+        nbytes, flops = work[name]
+        bound_ms, bound_by = cs.bound(nbytes, flops)
         out[name] = dict(
             wrapper_ms=wrapper_ms, host_enqueue_ms=host_ms,
-            kernel_device_us=sum(_device_us(e) for e in kern) /
-            max(1, sum(e.count for e in kern)),
+            kernel_device_us=dev_us,
             all_device_us_per_call=sum(_device_us(e) for e in ev) / 20,
-            device_kernels_per_call=sum(e.count for e in ev) / 20)
+            device_kernels_per_call=sum(e.count for e in ev) / 20,
+            bytes=nbytes, flops=flops, bound_us=bound_ms * 1e3,
+            bound_by=bound_by, share_of_bound=bound_ms * 1e3 / dev_us)
         print(name, json.dumps(out[name]), flush=True)
-    rows, length = exts.shape
-    out["bytes"] = dict(ext_read=rows * length * 8, **nbytes)
-    print("bytes", json.dumps(out["bytes"]), flush=True)
     return out
 
 

@@ -8,7 +8,12 @@ file imports no JAX, so it also runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Tolerances: B1 max abs difference <= 1e-4; B2 ``detected`` equal, ``vals``
 atol 1e-4, the same set of detected offsets per row, and ``c_at`` within
-1e-4 of ``|c|`` of the plain lag correlation at the kernel's offsets.  B3
+1e-4 of ``|c|`` of the plain lag correlation at the kernel's offsets.  The
+tiling tests (short rows, ragged lengths, M = 16-128 for B1 and 32-128
+for B2, every M but 48 reaching the kernels' generic instances, an exact
+metric plateau, a loud burst followed by quiet noise) hold
+B2's detected offsets within 3 samples of the plain version's (equal on
+the plateau, whose ties are exact) and its other outputs as above.  B3
 vs :func:`kernels.autocorr_metric` (float64 window sums): metric max abs
 difference <= 1e-4, ``c`` within 1e-4 of max ``|c|``.  B4/B5 vs
 :func:`kernels.autocorr_metric_prefix` (the same float32 prefix sums):
@@ -97,3 +102,130 @@ def test_autocorr_kernels_match_plain(loaded_cuda, name, plain, limit):
     assert float((m - mr).abs().max()) <= limit
     assert float((c - cr).abs().max()) <= limit * float(cr.abs().max())
     assert kernels.launches[name] == 1
+
+
+# --- the redesigned tilings of B1 and B2 ------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _params(M):
+    return ofdm.make_ofdm_params(M, {16: 4}.get(M, M // 8), {16: 2}.get(M, 4))
+
+
+def _rows(M, length, rows, rng, loud=False):
+    """``rows`` windows of ``length`` samples: frames at seeded offsets in
+    0.02-rms noise; ``loud``: a frame at 100x amplitude (+40 dB in power
+    over a unit frame) ending mid-window, then 0.01-rms noise and a unit
+    frame after it."""
+    params = _params(M)
+    x = (0.02 * (rng.normal(size=(rows, length)) +
+                 1j * rng.normal(size=(rows, length)))).astype(np.complex64)
+    for r in range(rows):
+        f = ofdm.assemble_frame(
+            params, ofdm.default_props(),
+            torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+            torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8))
+        ).numpy()
+        if loud:
+            pos = int(rng.integers(0, max(1, length // 4)))
+            n = min(len(f), length - pos)
+            x[r, pos:pos + n] = 100.0 * f[:n]
+            x[r, pos + n:] *= 0.5                    # 0.01-rms after it
+            pos2 = pos + n + 3 * M
+        else:
+            pos2 = int(rng.integers(0, max(1, length - len(f) // 2)))
+        n2 = max(0, min(len(f), length - pos2))
+        x[r, pos2:pos2 + n2] += f[:n2]
+    return x
+
+
+def _check_b1(x, M):
+    params = _params(M)
+    tmpl = np.tile(params.s0_time, ofdm.NUM_S0)
+    span = ofdm_sync._xc_span(len(tmpl))
+    for n_metric in (x.shape[-1] - len(tmpl) + 1, x.shape[-1] // 3 + 7):
+        kernels.reset_launch_counts()
+        got = kernels.detect_metric_xcorr_onepass(x, tmpl, span, n_metric)
+        torch.cuda.synchronize()
+        ref = kernels.detect_metric_xcorr_plain(x, tmpl, span, n_metric)
+        assert got.shape == ref.shape == (x.shape[0], n_metric)
+        assert float((got - ref).abs().max()) <= 1e-4
+        assert kernels.launches["detect_metric_xcorr_onepass"] == 1
+
+
+def _check_b2(x, M, T, k=8, exact_locs=False):
+    lag, win = M // 4, M
+    span = ofdm.NUM_S0 * M - lag
+    args = (x, lag, span, win, T, 0.5, k)
+    kernels.reset_launch_counts()
+    v, loc, c = kernels.detect_candidates_onepass(*args)
+    torch.cuda.synchronize()
+    vr, lr, _ = kernels.detect_candidates_plain(*args)
+    _, c_full = kernels.autocorr_metric(x, lag, span)
+    det = v > 0
+    assert torch.equal(det, vr > 0)
+    assert bool(det.any())
+    assert float((v - vr).abs().max()) <= 1e-4
+    for row in range(x.shape[0]):
+        a = np.sort(loc[row][det[row]].cpu().numpy())
+        b = np.sort(lr[row][det[row]].cpu().numpy())
+        limit = 0 if exact_locs else 3
+        assert np.abs(a.astype(np.int64) - b).max(initial=0) <= limit
+    c_ref = torch.gather(c_full, -1, loc.to(torch.int64))[det]
+    assert float(((c[det] - c_ref).abs() / c_ref.abs()).max()) <= 1e-4
+    assert kernels.launches["detect_candidates_onepass"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [16, 48, 64, 128])
+@pytest.mark.parametrize("length", [1500, 2048 + 95, 4096 + 2 * 2048 + 777])
+def test_b1_tiling_matches_plain(cuda, M, length):
+    """Rows shorter than one 2,048-output tile, and ragged lengths and
+    ``n_metric`` (not multiples of the tile or of 8 outputs a thread)."""
+    rng = np.random.default_rng(M * 7 + length)
+    x = torch.as_tensor(_rows(M, length, 3, rng)).to(cuda)
+    _check_b1(x, M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [32, 48, 64, 128])
+@pytest.mark.parametrize("length", [1700, 2112 + 500, 4096 + 3 * 2112 + 333])
+def test_b2_tiling_matches_plain(cuda, M, length):
+    """Rows shorter than one tile and ragged ``n_out`` (not a multiple of
+    64 or of the tile), at each M that reaches B2."""
+    rng = np.random.default_rng(M * 11 + length)
+    x = torch.as_tensor(_rows(M, length, 3, rng)).to(cuda)
+    n_out = length - (ofdm.NUM_S0 * M - M // 4) - M // 4 + 1
+    _check_b2(x, M, T=n_out - 2 * M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [32, 48, 64])
+def test_b1_b2_loud_burst_then_quiet(cuda, M):
+    """A +40 dB frame, then 0.01-rms noise and a unit frame: the window
+    sums of the quiet samples must carry no residue of the burst."""
+    rng = np.random.default_rng(M)
+    length = 3 * 4096 + 123
+    x = torch.as_tensor(_rows(M, length, 4, rng, loud=True)).to(cuda)
+    n_out = length - (ofdm.NUM_S0 * M - M // 4) - M // 4 + 1
+    _check_b2(x, M, T=n_out - 2 * M)
+    _check_b1(x, M)
+
+
+@pytest.mark.gpu
+def test_b2_plateau_keeps_the_lowest_offset(cuda):
+    """Runs of the constant sample 1: every window sum is an exact integer,
+    so the metric is exactly 1 over each run; every segment there must
+    pick its lowest offset, as the plain version does."""
+    M = 48
+    x = np.zeros((2, 3 * 4096), np.complex64)
+    x[0, 1000:1700] = 1.0
+    x[0, 5000:9000] = 1.0
+    x[1, 2113:2113 + 2500] = 1.0             # across a tile edge
+    x = torch.as_tensor(x).to(cuda)
+    _check_b2(x, M, T=x.shape[-1] - 4 * M, k=80, exact_locs=True)

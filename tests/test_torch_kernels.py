@@ -213,3 +213,137 @@ def test_b4_span_limit_raises_as_jax(pallas_ext):
         jpk.detect_metric_fused_2d(jnp.asarray(ext), 32, 224, interpret=True)
     with pytest.raises(ValueError):
         kernels.detect_metric_fused_2d(torch.as_tensor(ext), 32, 224)
+
+
+# --- the arithmetic of kernel B2's tiles, modelled in float32 NumPy --------
+
+B2_R, B2_THREADS, B2_SEG = 9, 256, 64        # csrc/detect_candidates.cu
+
+
+def _b2_tile_model(x, lag, span, win, T, thr, k, floor):
+    """Kernel B2's schedule on one row ``x`` in float32: per tile of TO
+    outputs, lag products in chunks of B2_R offsets; each window sum is the
+    chunk's in-chunk suffix sum plus the totals of the chunks between plus
+    the in-chunk prefix sum at the window end, summed in the kernel's
+    order; the NMS max takes the same chunked (van Herk) form with max.
+    Returns (vals, locs, e1 at stream offsets -win, -win + 1, ...)."""
+    f32 = np.float32
+    cap = B2_R * B2_THREADS
+    TO = (cap - 2 * win - lag - span + 1) // B2_SEG * B2_SEG
+    n_out = len(x) - span - lag + 1
+    n_seg = -(-n_out // B2_SEG)
+    segval = np.full(n_seg, -1.0, f32)
+    segarg = np.zeros(n_seg, np.int64)
+    e1_all = []
+    K, K2 = (span - 1) // B2_R, 2 * win // B2_R
+    rs, rs2 = B2_R * (K + 1) - span + 1, B2_R * (K2 + 1) - 2 * win
+    t = np.arange(B2_THREADS)
+    r = np.arange(B2_R)
+    q = (t[:, None] * B2_R + r[None, :])                  # [threads, R]
+    for n0 in range(0, n_seg * B2_SEG, TO):
+        g = n0 - win + np.arange(cap + lag + span)
+        X = np.where(g < 0, 0, x[np.clip(g, 0, len(x) - 1)]).astype(
+            np.complex64)
+        a, b = X[:cap], X[lag:cap + lag]
+        planes = [a.real * b.real + a.imag * b.imag,
+                  a.imag * b.real - a.real * b.imag,
+                  a.real * a.real + a.imag * a.imag]
+        sums = []
+        for p in planes:
+            p = p.astype(f32).reshape(B2_THREADS, B2_R)
+            pre = np.cumsum(p, axis=1, dtype=f32)
+            suf = np.cumsum(p[:, ::-1], axis=1, dtype=f32)[:, ::-1]
+            tot = np.concatenate([pre[:, -1], np.zeros(K + 1, f32)])
+            mid = np.zeros(B2_THREADS, f32)
+            for kk in range(1, K):
+                mid = mid + tot[t + kk]
+            mid1 = mid + tot[t + K]
+            pre = np.concatenate([pre.reshape(-1), np.zeros(span, f32)])
+            m = np.where(r[None, :] < rs, mid[:, None], mid1[:, None])
+            sums.append(((suf + m) + pre[q + span - 1]).reshape(-1))
+        cr, ci, e1 = sums
+        e1_all.append(e1[:TO])
+        e2 = np.concatenate([e1, np.zeros(lag, f32)])[lag:]
+        c2 = cr * cr + ci * ci
+        met = np.where(np.minimum(e1, e2) > f32(floor),
+                       c2 / np.maximum(e1 * e2, f32(1e-12)), 0).astype(f32)
+        mc = met.reshape(B2_THREADS, B2_R)
+        pmax = np.concatenate([np.maximum.accumulate(mc, axis=1).reshape(-1),
+                               np.full(2 * win, -np.inf, f32)])
+        smax = np.maximum.accumulate(mc[:, ::-1], axis=1)[:, ::-1]
+        cmax = np.concatenate([mc.max(axis=1), np.full(K2 + 1, -np.inf)])
+        mm = np.full(B2_THREADS, -np.inf, f32)
+        for kk in range(1, K2):
+            mm = np.maximum(mm, cmax[t + kk])
+        mm1 = np.maximum(mm, cmax[t + K2])
+        mmr = np.where(r[None, :] < rs2, mm[:, None], mm1[:, None])
+        lmax = np.maximum(np.maximum(smax, mmr), pmax[q + 2 * win])
+        j = np.arange(TO)
+        mv = met[j + win]
+        n = n0 + j
+        ok = (mv >= lmax.reshape(-1)[:TO]) & (mv > thr) & (n >= win) & \
+            (n < T + win) & (n < n_out)
+        score = np.where(ok, mv, -1.0).astype(f32).reshape(-1, B2_SEG)
+        s0 = n0 // B2_SEG
+        ns = min(len(score), n_seg - s0)
+        segval[s0:s0 + ns] = score.max(axis=1)[:ns]
+        segarg[s0:s0 + ns] = n0 + np.arange(ns) * B2_SEG + \
+            score.argmax(axis=1)[:ns]
+    top = np.argsort(-segval, kind="stable")[:k]
+    return segval[top], segarg[top], np.concatenate(e1_all)
+
+
+def test_b2_tile_arithmetic_after_a_loud_burst():
+    """A frame at 100x amplitude (+40 dB over a unit frame) ends mid-row,
+    then 0.01-rms noise and a unit frame follow.  The float32 model of
+    kernel B2's chunked window sums and van Herk NMS detects exactly what
+    the plain version detects, at the same offsets, and its window sums of
+    |x|^2 in the quiet part stay within 1e-5 (relative) of float64.  A
+    sliding add-and-subtract float32 sum over the same row keeps a residue
+    of the burst there, orders of magnitude larger: why the kernel sums
+    each window from its own terms."""
+    M = 48
+    lag, win = M // 4, M
+    span = jofdm.NUM_S0 * M - lag
+    params = tofdm.make_ofdm_params(M, 6, 4)
+    rng = np.random.default_rng(40)
+    frame = [tofdm.assemble_frame(
+        params, tofdm.default_props(),
+        torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+        torch.as_tensor(rng.integers(0, 256, 32, dtype=np.uint8))).numpy()
+        for _ in range(2)]
+    x = (0.01 * (rng.normal(size=3 * 4096) + 1j * rng.normal(size=3 * 4096))
+         ).astype(np.complex64)
+    x[300:300 + len(frame[0])] += 100.0 * frame[0]
+    pos = 300 + len(frame[0]) + 2000
+    x[pos:pos + len(frame[1])] += frame[1]
+    T = len(x) - span - lag + 1 - 2 * win
+    k = 8
+    floor = 1e-4 * span * (float(np.sum(np.abs(x.astype(np.complex128)) ** 2))
+                           / len(x) + 1e-12)
+    vals, locs, e1 = _b2_tile_model(x, lag, span, win, T, 0.5, k, floor)
+    pv, pl, _ = kernels.detect_candidates_plain(torch.as_tensor(x), lag, span,
+                                                win, T, 0.5, k)
+    det = vals > 0
+    np.testing.assert_array_equal(np.sort(det), np.sort(pv.numpy() > 0))
+    assert det.sum() == 2
+    np.testing.assert_array_equal(np.sort(locs[det]),
+                                  np.sort(pl.numpy()[pv.numpy() > 0]))
+    np.testing.assert_allclose(np.sort(vals[det]),
+                               np.sort(pv.numpy()[pv.numpy() > 0]),
+                               atol=1e-5)
+    # window sums of |x|^2 after the burst, across tile edges
+    p64 = np.abs(x.astype(np.complex128)) ** 2
+    quiet = np.arange(300 + len(frame[0]) + 10, pos - span - 10)
+    want = np.array([p64[m:m + span].sum() for m in quiet])
+    got = e1[quiet + win]
+    assert np.abs(got - want).max() <= 1e-5 * want.max()
+    # the sliding float32 sum of the same row, for contrast
+    run = np.zeros(len(x), np.float32)
+    p32 = p64.astype(np.float32)
+    acc = np.float32(p32[:span].sum(dtype=np.float32))
+    for m in range(len(x) - span):
+        run[m] = acc
+        acc = np.float32(acc + p32[m + span]) - p32[m]
+    slide_err = np.abs(run[quiet] - want).max()
+    assert slide_err > 100 * np.abs(got - want).max()

@@ -23,11 +23,19 @@ from liquid_usrp_tpu_torch.framing import ofdm as tofdm
 from liquid_usrp_tpu_torch.framing import ofdm_sync as tsync
 from liquid_usrp_tpu_torch.models import multichannel as tmc
 from liquid_usrp_tpu_torch.utils.convert import from_jax_tree, to_numpy_tree
+from liquid_usrp_tpu_torch.utils.device import DEVICE_ENV
 
 N = 2
 BS = 4096
 NB = 2
 STEP = BS * NB                  # channel samples per RX step
+
+
+@pytest.fixture
+def cpu_env(monkeypatch):
+    """The CLIs take no device flag: ask for the CPU through the
+    environment, as the JAX apps run under ``JAX_PLATFORMS=cpu``."""
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +58,7 @@ def mixture():
         sent.append((ch, hdr, pay))
     jinit, jstep = jmc.make_mctx_step(N)
     _, jy = jstep(jinit(), jnp.asarray(Y))
-    tinit, tstep = tmc.make_mctx_step(N)
+    tinit, tstep = tmc.make_mctx_step(N, "cpu")
     ts, ty = tstep(tinit(), torch.as_tensor(Y))
     jy = np.asarray(jy)
     noise = 0.002 * (rng.normal(size=jy.shape) + 1j * rng.normal(size=jy.shape))
@@ -109,7 +117,7 @@ def test_mcrx_batched_matches_jax_and_resumes(mixture):
     jsy = jsync.make_sync(params, **kw)
     tsy = tsync.make_sync(tofdm.make_ofdm_params(48, 6, 4), **kw)
     jinit, jstep = jmc.make_mcrx_batched_step(N, jsy, NB)
-    tinit, tstep = tmc.make_mcrx_batched_step(N, tsy, NB)
+    tinit, tstep = tmc.make_mcrx_batched_step(N, tsy, NB, "cpu")
     g = 2 * N * STEP
     chunks = [jy[i * g:(i + 1) * g] for i in range(3)] + \
         [np.zeros(g, np.complex64)]
@@ -144,11 +152,12 @@ def test_state_conversion_roundtrip():
         np.testing.assert_array_equal(a, b)
 
 
-def test_multichannel_rx_class_and_apps(tmp_path, capsys):
+def test_multichannel_rx_class_and_apps(cpu_env, tmp_path, capsys):
     """MultichannelRx (execute + flush) loopback, and the CLI pair, also
     with ``--snr/--cfo`` impairments and the ``-d`` debug dump."""
-    tx = tmc.MultichannelTx(N)
-    rx = tmc.MultichannelRx(N, block_size=2048, max_payload=128)
+    tx = tmc.MultichannelTx(N, device="cpu")
+    rx = tmc.MultichannelRx(N, block_size=2048, max_payload=128,
+                             device="cpu")
     assert rx.sync.use_pallas == 1          # "auto" -> kernel B1
     rng = np.random.default_rng(8)
     sent = {}

@@ -33,9 +33,17 @@ from liquid_usrp_tpu_torch.ops import iqfmt as tiq
 from liquid_usrp_tpu_torch.ops import kernels
 from liquid_usrp_tpu_torch.utils.checkpoint import load_state, save_state
 from liquid_usrp_tpu_torch.utils.convert import from_jax_tree
+from liquid_usrp_tpu_torch.utils.device import DEVICE_ENV, default_device
 
 KW = dict(block_size=4096, max_payload=256, batch_blocks=2)
 CUT = 2 * 4096 + 1234           # mid-stream split: 2 blocks + a partial one
+
+
+@pytest.fixture
+def cpu_env(monkeypatch):
+    """The CLIs take no device flag: ask for the CPU through the
+    environment, as the JAX apps run under ``JAX_PLATFORMS=cpu``."""
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
 
 
 def _rows_equal(got, want):
@@ -84,7 +92,7 @@ def jax_run():
 
 def test_transmit_packet_matches_jax(jax_run):
     sent, *_ = jax_run
-    tx = OfdmTxRx(**KW)
+    tx = OfdmTxRx(**KW, device="cpu")
     tx.set_tx_gain_soft(-6.0)
     for h, p, want in sent:
         got = tx.transmit_packet(h, p)
@@ -98,7 +106,7 @@ def test_run_rx_matches_jax_and_resumes(jax_run):
     given JAX's mid-stream state and pending samples, continues to JAX's
     rows.  Every frame decodes payload-exact."""
     sent, air, rows_a, rows_b, state, pending = jax_run
-    rx = OfdmTxRx(**KW)
+    rx = OfdmTxRx(**KW, device="cpu")
     rx.start_rx()
     got_a = rx.run_rx(air[:CUT])
     np.testing.assert_array_equal(rx._pending, pending)
@@ -110,7 +118,7 @@ def test_run_rx_matches_jax_and_resumes(jax_run):
     for f, (h, p, _) in zip(ok, sent):
         np.testing.assert_array_equal(f["header"], h)
         np.testing.assert_array_equal(f["payload"], p)
-    resumed = OfdmTxRx(**KW)
+    resumed = OfdmTxRx(**KW, device="cpu")
     resumed._rx_state = from_jax_tree(state)
     resumed._pending = pending
     resumed.start_rx()
@@ -130,7 +138,7 @@ def test_txrx_surface(tmp_path):
     rng = np.random.default_rng(3)
     header = rng.integers(0, 256, 8, dtype=np.uint8)
     payload = rng.integers(0, 256, 64, dtype=np.uint8)
-    txrx = OfdmTxRx(max_payload=128, block_size=4096)
+    txrx = OfdmTxRx(max_payload=128, block_size=4096, device="cpu")
     assert txrx.device == torch.device("cpu")
     whole = txrx.transmit_packet(header, payload)
     txrx.assemble_frame(header, payload)
@@ -168,7 +176,8 @@ def test_txrx_surface(tmp_path):
 
     for ingest in ("c64", "bf16", "sc8"):
         rx = OfdmTxRx(max_payload=128, block_size=4096, rx_ingest=ingest,
-                      rx_transform=derotate if ingest == "c64" else None)
+                      rx_transform=derotate if ingest == "c64" else None,
+                      device="cpu")
         rx.debug_enable()
         rx.start_rx()
         rot = air * np.exp(1j * phase).astype(np.complex64) \
@@ -191,7 +200,8 @@ def test_txrx_surface(tmp_path):
 def test_virtual_air_frequency_mistuning():
     """A 200 Hz mistuning at 500 kS/s through the virtual air becomes a
     frequency offset that the synchronizer recovers."""
-    a, b = OfdmTxRx(max_payload=128), OfdmTxRx(max_payload=128)
+    a = OfdmTxRx(max_payload=128, device="cpu")
+    b = OfdmTxRx(max_payload=128, device="cpu")
     a.set_tx_freq(462.0e6 + 200.0)
     b.set_rx_freq(462.0e6)
     rng = np.random.default_rng(0)
@@ -282,7 +292,7 @@ def test_ingest_converters_and_prefetcher(tmp_path):
 
 
 def test_checkpoint_roundtrip_and_mismatch(tmp_path):
-    rx = OfdmTxRx(**KW)
+    rx = OfdmTxRx(**KW, device="cpu")
     rx._rx_state = rx._rx_state._replace(
         tail=torch.arange(rx._sync.overlap).to(torch.complex64),
         base=torch.tensor(12345, dtype=torch.int32))
@@ -310,7 +320,7 @@ def _packets(out: str) -> int:
     return int(re.search(r"valid packets\s+:\s+(\d+)", out).group(1))
 
 
-def test_ofdmflexframe_apps(tmp_path, capsys):
+def test_ofdmflexframe_apps(cpu_env, tmp_path, capsys):
     """The TX -> RX pair decodes every packet; a stream split mid-frame with
     ``--save-state``/``--load-state`` decodes the same packets as one run;
     ``-d`` writes the octave dump; ``--snr/--cfo`` impairments and
@@ -366,3 +376,22 @@ def test_ofdmflexframe_apps(tmp_path, capsys):
     for mod in (ofdmflexframe_tx, ofdmflexframe_rx):
         assert mod.main(["-h"]) == 0
         assert "usage" in capsys.readouterr().out
+
+
+def test_no_card_raises_instead_of_running_on_the_cpu(tmp_path,
+                                                      monkeypatch):
+    """Without a CUDA device and without the CPU asked for, the class and
+    the RX app raise; they ran on the CPU before (ROADMAP Queue C, C2).
+    The CPU is taken only when asked for, by argument or environment."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv(DEVICE_ENV, raising=False)
+    iq = str(tmp_path / "x.iq")
+    write_iq(iq, np.zeros(4096, np.complex64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OfdmTxRx()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ofdmflexframe_rx.main(["-i", iq, "-q"])
+    assert OfdmTxRx(device="cpu").device == torch.device("cpu")
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    assert default_device() == torch.device("cpu")
+    assert OfdmTxRx().device == torch.device("cpu")
