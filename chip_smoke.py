@@ -51,7 +51,9 @@ apps) at the app defaults:
 8. ``OfdmTxRx.debug_print`` on the card, which must launch B3;
 9. the multichannel receiver at M=16 (cp=4, taper=2, ``use_pallas=2``):
    every injected frame decodes with ``bench.py``'s fingerprints, B3 is
-   launched and B2 is not (its 64-sample segments need M >= 32);
+   launched and B2 is not (its 64-sample segments need M >= 32); then B3's
+   generic instance against its plain version on that path's extended
+   windows (limits as in 3), with its times;
 10. decode-verified samples/s of the single-channel path per detect
    config, and the time of one 8-block dispatch, over a smoke window;
 11. B4 and B5 lie on no path: their launch counts, summed over the path
@@ -392,15 +394,17 @@ def check_kernels(sync, rx, blocks):
             exts.shape)}
 
 
-def timed(name, fn, plain, args, err, nbytes_flops, shape):
+def timed(name, fn, plain, args, err, nbytes_flops, shape, label=None):
     """The wrapper ``fn(*args)``'s and the plain version's times (CUDA
     events), the kernel's device time alone (profiler) and its bound: one
-    entry of the kernels line."""
+    entry of the kernels line.  ``label`` names the printed line (default
+    ``name``)."""
     ms = cuda_ms(lambda: fn(*args), 50)
     plain_ms = cuda_ms(lambda: plain(*args), 10)
     dev_us = kernel_device_us(lambda: fn(*args), KERNELS[name]["kernel"])
     bound_ms, bound_by = bound(*nbytes_flops)
-    print(f"{name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; kernel "
+    print(f"{label or name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"kernel "
           f"alone {dev_us:.2f} us on the device, bound {bound_ms * 1e3:.2f} "
           f"us by {bound_by} ({nbytes_flops[0] / 1e6:.2f} MB, "
           f"{nbytes_flops[1] / 1e6:.1f} MFLOP): it reaches "
@@ -502,34 +506,43 @@ def check_class_entry(dev):
           f"payload-exact", flush=True)
 
 
+def check_metric_kernel(name, plain, limit, exts, m_sub, label=None):
+    """Kernel ``name`` (B3, B4 or B5) vs its ``plain`` version on the
+    extended windows ``exts`` of M = ``m_sub``: metric max abs difference
+    and ``c`` relative to max ``|c|`` within ``limit``; then its times."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    lag = m_sub // 4
+    span = 2 * m_sub - lag
+    fn = getattr(kernels, name)
+    m, c = fn(exts, lag, span)
+    torch.cuda.synchronize()
+    mr, cr = plain(exts, lag, span)
+    torch.cuda.synchronize()
+    err = float((m - mr).abs().max())
+    c_rel = float((c - cr).abs().max() / cr.abs().max())
+    print(f"{label or name} kernel vs plain: metric max abs diff {err:.3e} "
+          f"(limit {limit}), c max diff {c_rel:.3e} of max |c| (limit "
+          f"{limit}), metric peak {float(mr.max()):.4f}", flush=True)
+    if not (err <= limit and c_rel <= limit and m.shape == mr.shape):
+        raise AssertionError(f"{label or name} disagrees with its plain "
+                             f"version")
+    return timed(name, fn, plain, (exts, lag, span), err,
+                 work(name, *exts.shape, span=span, lag=lag), exts.shape,
+                 label)
+
+
 def check_autocorr_kernels(exts):
     """B3, B4 and B5 vs their plain versions on the single-channel path's
     first 8 extended windows, with times.  Returns per-kernel stats."""
     from liquid_usrp_tpu_torch.ops import kernels
     print(f"kernel inputs: {tuple(exts.shape)} {exts.dtype}", flush=True)
-    lag = M // 4
-    span = 2 * M - lag
-    stats = {}
-    for name, plain, limit in (
-            ("detect_metric_onepass", kernels.autocorr_metric, 1e-4),
-            ("detect_metric_fused_2d", kernels.autocorr_metric_prefix, 1e-5),
-            ("detect_metric_fused", kernels.autocorr_metric_prefix, 1e-5)):
-        fn = getattr(kernels, name)
-        m, c = fn(exts, lag, span)
-        torch.cuda.synchronize()
-        mr, cr = plain(exts, lag, span)
-        torch.cuda.synchronize()
-        err = float((m - mr).abs().max())
-        c_rel = float((c - cr).abs().max() / cr.abs().max())
-        print(f"{name} kernel vs plain: metric max abs diff {err:.3e} "
-              f"(limit {limit}), c max diff {c_rel:.3e} of max |c| (limit "
-              f"{limit}), metric peak {float(mr.max()):.4f}", flush=True)
-        if not (err <= limit and c_rel <= limit and m.shape == mr.shape):
-            raise AssertionError(f"{name} disagrees with its plain version")
-        stats[name] = timed(name, fn, plain, (exts, lag, span), err,
-                            work(name, *exts.shape, span=span, lag=lag),
-                            exts.shape)
-    return stats
+    return {name: check_metric_kernel(name, plain, limit, exts, M)
+            for name, plain, limit in (
+                ("detect_metric_onepass", kernels.autocorr_metric, 1e-4),
+                ("detect_metric_fused_2d", kernels.autocorr_metric_prefix,
+                 1e-5),
+                ("detect_metric_fused", kernels.autocorr_metric_prefix,
+                 1e-5))}
 
 
 def sc_windows(params, stream, dev):
@@ -723,10 +736,13 @@ def check_debug_print(stream, dev, tmpdir):
 
 def run_mcrx_m16(noise, flush, weights, dev):
     """The multichannel receiver at M=16, ``use_pallas=2``: every injected
-    frame decodes with ``bench.py``'s fingerprints, through B3 and not B2."""
+    frame decodes with ``bench.py``'s fingerprints, through B3 and not B2.
+    Then B3's generic instance vs its plain version, with times, on the
+    extended windows of that path's first chunk.  Returns the path's
+    launch counts."""
     from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
-    from liquid_usrp_tpu_torch.models.multichannel import \
-        make_mcrx_batched_step
+    from liquid_usrp_tpu_torch.models.multichannel import (
+        Mcrx, make_mcrx_batched_step)
     from liquid_usrp_tpu_torch.ops import kernels
     params = ofdm.make_ofdm_params(M16, CP16, TAPER16)
     sync = ofdm_sync.make_sync(params, block_size=BLOCK,
@@ -753,6 +769,14 @@ def run_mcrx_m16(noise, flush, weights, dev):
           f"{sum(expected[0])} frames decoded, fingerprints match; B3 "
           f"launched {launches['detect_metric_onepass']} times, B2 0",
           flush=True)
+    rx = Mcrx(N, sync, N_BLOCKS, dev)
+    st = rx.init_state()
+    _, _, chans = rx.front_end(st, blocks)
+    _, exts = ofdm_sync.extended_windows(sync, st.syncs.tail, chans)
+    check_metric_kernel("detect_metric_onepass", kernels.autocorr_metric,
+                        1e-4, exts, M16,
+                        f"B3 generic instance, M=16 windows "
+                        f"{tuple(exts.shape)}")
     return launches
 
 

@@ -9,65 +9,310 @@
 //   metric[n] = |c|^2 / max(e1*e2, 1e-12), or 0 unless min(e1, e2) > floor
 //
 // It writes the full-rate metric (float) and c (interleaved float2, a
-// complex64 tensor on the host side).
+// complex64 tensor on the host side).  The floor per row is computed by the
+// wrapper (ops/kernels.py), as the JAX wrapper computes it.  Beyond the row
+// end the stream repeats its last sample, as the JAX wrapper pads; no valid
+// output reads it.
 //
-// What bounds it on the card: the roof is device-memory traffic, 8 B read
-// and 12 B written per output.  The design is the tile stage that kernel B2
-// (detect_candidates.cu) also runs, in autocorr_tile.cuh: a block stages a
-// tile of AC_TO outputs plus its span + lag - 1 halo in shared memory, forms
-// the lag products there once, and each thread sums its outputs' span terms
-// from shared memory.  Those span-long sums (4 shared-memory loads per term)
-// are what limit this simple design, not device memory (PERF.md has the
-// numbers).  The floor per row is computed by the wrapper (ops/kernels.py),
-// as the JAX wrapper computes it.  No valid output reads the samples beyond
-// the row end.
+// What bounds it on the card: device-memory traffic, 8 B read and 12 B
+// written per output (the stores are 60 % of the bytes).  The design keeps
+// the on-chip work per output small and constant, and keeps the memory busy
+// while the SMs compute:
+//
+// * Window sums in the chunked van Herk / Gil-Werman form of kernel B2
+//   (detect_candidates.cu): each thread owns a chunk of B3_R consecutive
+//   offsets; a window of span terms is the suffix sum of its first chunk
+//   (registers), the totals of the chunks in between and the prefix sum of
+//   its last chunk (shared memory).  About 16 shared-memory accesses per
+//   output, whatever the span, where a direct sum takes 4 per term.  Every
+//   window is a sum of its own terms only, with no subtraction: the quiet
+//   samples after a loud burst are outputs themselves, and a float32
+//   running sum would leave the burst's residue in them.
+// * e2[n] = e1[n + lag] is a read of the e1 plane, not a fourth sum.
+// * B3_R is odd: lanes that read at a stride of B3_R words (or float2) hit
+//   distinct banks.
+// * A persistent grid: the blocks an SM holds (occupancy query, at most
+//   B3_BLOCKS_PER_SM) walk the (row, tile) pairs with a grid stride, and
+//   the samples of a block's next tile are in flight (16-byte cp.async into
+//   the second of two staging buffers) while it sums and stores this one.
+//   Three blocks of 256 threads an SM measured fastest (scripts/
+//   kernel_variants.py, NVIDIA H100 80GB HBM3 at a 700.00 W power limit):
+//   at the single-channel path's 368 tiles (8 rows of 100,366 samples)
+//   each of the 396 blocks takes one tile, and loads, sums and stores
+//   overlap across the three blocks of an SM; two blocks an SM, each
+//   walking one or two tiles, took 27-60 % longer (four runs).
+// * Coalesced 16-byte stores: the tile's metric and c are staged in shared
+//   memory at the alignment of their place in the output, then written as
+//   float4 (4 metrics, or 2 c); each row's unaligned head and tail go out as
+//   scalars (n_out is odd at the single-channel shapes).
+// * The geometry of M = 48 is a template instance, so its loops unroll with
+//   constant bounds; every other geometry runs the generic instance.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "autocorr_tile.cuh"
+#define B3_R 9                // offsets per thread chunk (odd)
+#define B3_BLOCKS_PER_SM 3    // resident blocks an SM takes at most
+#define B3_THREADS 256        // one chunk per thread
+#define B3_CAP (B3_R * B3_THREADS)
 
-#define AC_TO 512       // outputs per block
-#define AC_THREADS 256
+// Outputs of one tile: the most whose windows (span lag products for c,
+// span powers at offsets up to lag further for e1 and e2) lie in the
+// block's B3_CAP offsets; a multiple of 4.
+__host__ __device__ constexpr int b3_tile(int lag, int span) {
+  return (B3_CAP - lag - span + 1) & ~3;
+}
 
-__global__ void __launch_bounds__(AC_THREADS)
-autocorr_metric_kernel(const float2* __restrict__ ext, int len, int lag,
-                       int span, const float* __restrict__ floors, int n_out,
+// float2 slots of one staging buffer: B3_CAP + lag samples, the pair parity
+// shift and the rounding to pairs; even, so that each buffer is 16-byte
+// aligned.
+__host__ __device__ constexpr int b3_xs(int lag) {
+  return (B3_CAP + lag + 3) & ~1;
+}
+
+// Shared-memory floats of one block: two staging buffers (the current one
+// later holds e1), 3 planes of in-chunk prefix sums (later the staged
+// metric and c) with a pad of span floats, and 3 planes of chunk totals
+// with a pad of K + 1 floats.  Every thread computes all B3_R offsets of its
+// chunk with no bounds test: offsets past the tile give values no output
+// reads, and the pads keep their reads inside the block's memory.
+__host__ __device__ constexpr int b3_smem_floats(int lag, int span) {
+  return 4 * b3_xs(lag) + 3 * B3_CAP + span + 3 * B3_THREADS +
+         (span - 1) / B3_R + 1;
+}
+
+// Issues the copies of samples [n0, n0 + B3_CAP + lag) of the row at
+// ``roff`` into ``xs`` (sample n0 + i at xs[s + i], s the pair parity):
+// 16-byte cp.async for pairs inside the row when the tensor is aligned,
+// else plain loads, with the last sample repeated past the row end.
+__device__ inline void b3_stage(float2* xs, const float2* __restrict__ ext,
+                                long long roff, int len, int n0, int lag,
+                                bool vec) {
+  const float2* rp = ext + roff;
+  const int s = (int)((roff + n0) & 1);
+  const int npair = (B3_CAP + lag + s + 1) >> 1;
+  for (int p = threadIdx.x; p < npair; p += B3_THREADS) {
+    const int gi = n0 - s + 2 * p;
+    if (vec && gi >= 0 && gi + 1 < len) {
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(xs + 2 * p);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                   "l"(rp + gi)
+                   : "memory");
+    } else {
+      const int g0 = gi < 0 ? 0 : (gi < len ? gi : len - 1);
+      const int g1 = gi + 1 < len ? gi + 1 : len - 1;
+      xs[2 * p] = rp[g0];
+      xs[2 * p + 1] = rp[g1];
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// LAG, SPAN > 0: the detect geometry as compile-time constants (M = 48), so
+// every loop unrolls with constant bounds; 0, 0: the same kernel for any
+// geometry, from lag_rt and span_rt.
+template <int LAG, int SPAN>
+__global__ void __launch_bounds__(B3_THREADS, B3_BLOCKS_PER_SM)
+autocorr_metric_kernel(const float2* __restrict__ ext, int rows, int len,
+                       int lag_rt, int span_rt,
+                       const float* __restrict__ floors, int n_out,
                        float* __restrict__ metric, float2* __restrict__ c) {
-  extern __shared__ float sm[];
-  const int row = blockIdx.y;
-  const int n0 = blockIdx.x * AC_TO;
-  const AcTile t = ac_stage_tile(sm, ext + (long long)row * len, len, n0,
-                                 AC_TO + span - 1, lag);
-  const float floor_v = floors[row];
-  const long long obase = (long long)row * n_out;
-  for (int q = threadIdx.x; q < AC_TO && n0 + q < n_out; q += blockDim.x) {
-    float2 cq;
-    metric[obase + n0 + q] = ac_metric(t, q, span, lag, floor_v, cq);
-    c[obase + n0 + q] = cq;
+  extern __shared__ __align__(16) float sm[];
+  const int lag = LAG ? LAG : lag_rt;
+  const int span = SPAN ? SPAN : span_rt;
+  const int TO = b3_tile(lag, span);
+  const int nt = B3_THREADS;
+  const int cap = B3_CAP;
+  const int XB = b3_xs(lag);
+  float* pre = sm + 4 * XB;         // 3 planes of cap, then a pad
+  float* csum = pre + 3 * cap + span;  // 3 planes of nt, then a pad
+  float* mst = pre;                 // staged metric, cap + 4
+  float2* cst = reinterpret_cast<float2*>(pre + cap + 4);  // staged c
+  const int tid = threadIdx.x;
+  const int tiles = (n_out + TO - 1) / TO;
+  const int items = rows * tiles;
+  const bool vin = ((uintptr_t)ext & 15) == 0;
+  int it = blockIdx.x;  // < items: the grid holds at most one block a tile
+  {
+    const int row = it / tiles;
+    b3_stage(reinterpret_cast<float2*>(sm), ext, (long long)row * len, len,
+             (it - row * tiles) * TO, lag, vin);
+  }
+
+  for (int buf = 0; it < items; it += gridDim.x, buf ^= 1) {
+    const int row = it / tiles;
+    const int n0 = (it - row * tiles) * TO;
+    float2* xs = reinterpret_cast<float2*>(sm) + buf * XB;
+
+    // 1. The next tile's copies into the other buffer (free since the
+    //    barrier before the last stores), then wait for this tile's.
+    const int nxt = it + gridDim.x;
+    if (nxt < items) {
+      const int nrow = nxt / tiles;
+      b3_stage(reinterpret_cast<float2*>(sm) + (buf ^ 1) * XB, ext,
+               (long long)nrow * len, len, (nxt - nrow * tiles) * TO, lag,
+               vin);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+
+    // 2. Lag products of the own chunk: in-chunk prefix sums to shared
+    //    memory, chunk totals, in-chunk suffix sums kept in registers.
+    const float2* X = xs + (int)(((long long)row * len + n0) & 1);
+    const int q0 = tid * B3_R;
+    float sr[B3_R], si[B3_R], sp[B3_R];
+    {
+      float ar = 0.f, ai = 0.f, ap = 0.f;
+#pragma unroll
+      for (int r = 0; r < B3_R; ++r) {
+        const float2 a = X[q0 + r], b = X[q0 + r + lag];  // a * conj(b)
+        sr[r] = a.x * b.x + a.y * b.y;
+        si[r] = a.y * b.x - a.x * b.y;
+        sp[r] = a.x * a.x + a.y * a.y;
+        ar += sr[r];
+        ai += si[r];
+        ap += sp[r];
+        pre[q0 + r] = ar;
+        pre[cap + q0 + r] = ai;
+        pre[2 * cap + q0 + r] = ap;
+      }
+      csum[tid] = ar;
+      csum[nt + tid] = ai;
+      csum[2 * nt + tid] = ap;
+#pragma unroll
+      for (int r = B3_R - 2; r >= 0; --r) {
+        sr[r] += sr[r + 1];
+        si[r] += si[r + 1];
+        sp[r] += sp[r + 1];
+      }
+    }
+    __syncthreads();
+
+    // 3. Window sums of the own offsets q = q0 + r: the suffix sum of the
+    //    own chunk, the totals of chunks tid+1 .. tid+K-1, then the prefix
+    //    of the chunk holding the window end; from r = rs on, that chunk is
+    //    tid+K+1 and chunk tid+K counts whole.  c stays in registers; e1
+    //    goes to shared memory (over the staged samples) for e2.
+    float* e1s = reinterpret_cast<float*>(xs);
+    float cr[B3_R], ci[B3_R], e1[B3_R];
+    {
+      const int K = (span - 1) / B3_R;
+      const int rs = B3_R * (K + 1) - span + 1;
+      float mr = 0.f, mi = 0.f, mp = 0.f;
+#pragma unroll
+      for (int k = 1; k < K; ++k) {
+        mr += csum[tid + k];
+        mi += csum[nt + tid + k];
+        mp += csum[2 * nt + tid + k];
+      }
+      const float mr1 = mr + csum[tid + K];
+      const float mi1 = mi + csum[nt + tid + K];
+      const float mp1 = mp + csum[2 * nt + tid + K];
+#pragma unroll
+      for (int r = 0; r < B3_R; ++r) {
+        const int e = q0 + r + span - 1;
+        cr[r] = (sr[r] + (r < rs ? mr : mr1)) + pre[e];
+        ci[r] = (si[r] + (r < rs ? mi : mi1)) + pre[cap + e];
+        e1[r] = (sp[r] + (r < rs ? mp : mp1)) + pre[2 * cap + e];
+        e1s[q0 + r] = e1[r];
+      }
+    }
+    __syncthreads();
+
+    // 4. The floor-gated metric of the own offsets; metric and c staged
+    //    (over the prefix planes) at the alignment of their output places.
+    const long long G = (long long)row * n_out + n0;  // output 0 of the tile
+    const int a4 = (int)(G & 3), a2 = (int)(G & 1);
+    {
+      const float floor_v = floors[row];
+#pragma unroll
+      for (int r = 0; r < B3_R; ++r) {
+        const float e2 = e1s[q0 + r + lag];
+        const float c2 = cr[r] * cr[r] + ci[r] * ci[r];
+        mst[q0 + r + a4] = (fminf(e1[r], e2) > floor_v)
+                               ? c2 / fmaxf(e1[r] * e2, 1e-12f)
+                               : 0.f;
+        cst[q0 + r + a2] = make_float2(cr[r], ci[r]);
+      }
+    }
+    __syncthreads();
+
+    // 5. Stores of the tile's nv outputs: a scalar head up to the 16-byte
+    //    boundary, float4 in between, a scalar tail.
+    const int nv = min(TO, n_out - n0);
+    float* mrow = metric + G;
+    float2* crow = c + G;
+    const int h4 = min(nv, (4 - a4) & 3);
+    const int n4 = (nv - h4) >> 2;
+    const int h2 = min(nv, a2);
+    const int n2 = (nv - h2) >> 1;
+    {
+      const float4* src = reinterpret_cast<const float4*>(mst + h4 + a4);
+      float4* dst = reinterpret_cast<float4*>(mrow + h4);
+      for (int k = tid; k < n4; k += nt) dst[k] = src[k];
+    }
+    {
+      const float4* src = reinterpret_cast<const float4*>(cst + h2 + a2);
+      float4* dst = reinterpret_cast<float4*>(crow + h2);
+      for (int k = tid; k < n2; k += nt) dst[k] = src[k];
+    }
+    for (int j = tid; j < h4; j += nt) mrow[j] = mst[j + a4];
+    for (int j = h4 + 4 * n4 + tid; j < nv; j += nt) mrow[j] = mst[j + a4];
+    for (int j = tid; j < h2; j += nt) crow[j] = cst[j + a2];
+    for (int j = h2 + 2 * n2 + tid; j < nv; j += nt) crow[j] = cst[j + a2];
   }
 }
 
+typedef void (*MetricKernel)(const float2*, int, int, int, int, const float*,
+                             int, float*, float2*);
+
+// The instantiation for a geometry: M = 48, the one the paths run, else
+// the generic one.
+static MetricKernel metric_kernel(int lag, int span) {
+  if (lag == 12 && span == 84) return autocorr_metric_kernel<12, 84>;
+  return autocorr_metric_kernel<0, 0>;
+}
+
 // ext: [rows, len] complex64 on the device; floors: [rows] float.
-// Outputs [rows, n_out]: metric float, c complex64 (float2).
-// Returns the CUDA error code of the launch (0 = success).
+// Outputs [rows, n_out], 16-byte aligned: metric float, c complex64
+// (float2).  The geometry must have B3_R < span and a tile of at least 4
+// outputs (span + lag <= B3_CAP - 3).  Returns the CUDA error code of the
+// launch (0 = success; cudaErrorInvalidValue for what it does not take).
 extern "C" int autocorr_metric_launch(const void* ext, int rows, int len,
                                       int lag, int span, const void* floors,
                                       int n_out, void* metric, void* c,
                                       void* stream) {
-  if (rows <= 0 || rows > 65535 || lag <= 0 || span <= 0 || n_out <= 0 ||
-      n_out != len - span - lag + 1)
+  if (rows <= 0 || lag <= 0 || span <= B3_R || n_out <= 0 ||
+      n_out != len - span - lag + 1 || b3_tile(lag, span) < 4 ||
+      (((uintptr_t)metric | (uintptr_t)c) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (size_t)ac_tile_floats(AC_TO + span - 1, lag);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(autocorr_metric_kernel,
+  const int TO = b3_tile(lag, span);
+  const long long items = (long long)rows * ((n_out + TO - 1) / TO);
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)b3_smem_floats(lag, span);
+  const MetricKernel kern = metric_kernel(lag, span);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((n_out + AC_TO - 1) / AC_TO, rows);
-  autocorr_metric_kernel<<<grid, AC_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)ext, len, lag, span, (const float*)floors, n_out,
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        B3_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (per_sm > B3_BLOCKS_PER_SM) per_sm = B3_BLOCKS_PER_SM;
+  const long long grid = items < (long long)per_sm * sms
+                             ? items : (long long)per_sm * sms;
+  kern<<<(int)grid, B3_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float2*)ext, rows, len, lag, span, (const float*)floors, n_out,
       (float*)metric, (float2*)c);
   return (int)cudaGetLastError();
 }

@@ -330,7 +330,10 @@ def detect_metric_onepass(ext: torch.Tensor, lag: int, span: int,
                           floor_scale: float = 1e-4):
     """Kernel B3: the Schmidl-Cox metric and lag correlation ``(metric,
     c)`` for every offset of each window, as :func:`autocorr_metric`
-    defines them, summed tile-locally in float32 on the card."""
+    defines them, summed tile-locally in float32 on the card (chunked
+    window sums, no subtraction).  The kernel takes ``9 < span`` and
+    ``span + lag <= 2301`` (OFDM M up to 1,150); beyond, a CUDA tensor
+    raises ``RuntimeError`` (its launch refuses the geometry)."""
     return _metric_rows("detect_metric_onepass", autocorr_metric,
                         _autocorr_metric_cuda, ext, lag, span, floor_scale)
 

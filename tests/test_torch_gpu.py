@@ -15,7 +15,12 @@ metric plateau, a loud burst followed by quiet noise) hold
 B2's detected offsets within 3 samples of the plain version's (equal on
 the plateau, whose ties are exact) and its other outputs as above.  B3
 vs :func:`kernels.autocorr_metric` (float64 window sums): metric max abs
-difference <= 1e-4, ``c`` within 1e-4 of max ``|c|``.  B4/B5 vs
+difference <= 1e-4, ``c`` within 1e-4 of max ``|c|``, on the loaded
+windows and in B3's tiling tests (M = 16-64, M = 48 through its template
+instance and the others through the generic one; rows shorter than a
+tile, ending mid-tile, with odd and even ``n_out``, more tiles than the
+persistent grid has blocks, and a loud burst followed by quiet noise,
+whose metric would carry a residue of a running sum).  B4/B5 vs
 :func:`kernels.autocorr_metric_prefix` (the same float32 prefix sums):
 metric <= 1e-5, ``c`` within 1e-5 of max ``|c|``.
 """
@@ -104,7 +109,7 @@ def test_autocorr_kernels_match_plain(loaded_cuda, name, plain, limit):
     assert kernels.launches[name] == 1
 
 
-# --- the redesigned tilings of B1 and B2 ------------------------------------
+# --- the redesigned tilings of B1, B2 and B3 -------------------------------
 
 @pytest.fixture
 def cuda():
@@ -181,6 +186,20 @@ def _check_b2(x, M, T, k=8, exact_locs=False):
     assert kernels.launches["detect_candidates_onepass"] == 1
 
 
+def _check_b3(x, M):
+    lag = M // 4
+    span = ofdm.NUM_S0 * M - lag
+    kernels.reset_launch_counts()
+    m, c = kernels.detect_metric_onepass(x, lag, span)
+    torch.cuda.synchronize()
+    mr, cr = kernels.autocorr_metric(x, lag, span)
+    assert m.shape == c.shape == mr.shape == (x.shape[0], x.shape[1] - span
+                                              - lag + 1)
+    assert float((m - mr).abs().max()) <= 1e-4
+    assert float((c - cr).abs().max()) <= 1e-4 * float(cr.abs().max())
+    assert kernels.launches["detect_metric_onepass"] == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [16, 48, 64, 128])
 @pytest.mark.parametrize("length", [1500, 2048 + 95, 4096 + 2 * 2048 + 777])
@@ -202,6 +221,41 @@ def test_b2_tiling_matches_plain(cuda, M, length):
     x = torch.as_tensor(_rows(M, length, 3, rng)).to(cuda)
     n_out = length - (ofdm.NUM_S0 * M - M // 4) - M // 4 + 1
     _check_b2(x, M, T=n_out - 2 * M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [16, 32, 48, 64])
+@pytest.mark.parametrize("length,rows,loud", [
+    (1700, 3, False),              # shorter than one tile, n_out odd
+    (2209 + 500, 3, False),        # ends mid-tile, n_out even
+    (3 * 2208 + 751, 5, False),    # several tiles, n_out even
+    (100366, 24, False),           # the path's rows; 2-3 tiles a block
+    (3 * 4096 + 123, 4, True)])    # a +40 dB burst, then quiet noise
+def test_b3_tiling_matches_plain(cuda, M, length, rows, loud):
+    """B3's tiles, the persistent loop over them and the scalar heads and
+    tails of its 16-byte stores, against the plain version."""
+    rng = np.random.default_rng(M * 13 + length)
+    x = torch.as_tensor(_rows(M, length, rows, rng, loud=loud)).to(cuda)
+    _check_b3(x, M)
+
+
+@pytest.mark.gpu
+def test_b3_takes_windows_up_to_its_tile(cuda):
+    """span + lag = 2301 leaves a tile of 4 outputs (175 tiles a row, more
+    than the grid has blocks) and matches the plain version; one more, or
+    a span inside one chunk, is refused by the launch and raises."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor((0.1 * (rng.normal(size=(3, 3000)) + 1j *
+                                rng.normal(size=(3, 3000)))
+                         ).astype(np.complex64)).to(cuda)
+    m, c = kernels.detect_metric_onepass(x, 300, 2001)
+    torch.cuda.synchronize()
+    mr, cr = kernels.autocorr_metric(x, 300, 2001)
+    assert float((m - mr).abs().max()) <= 1e-4
+    assert float((c - cr).abs().max()) <= 1e-4 * float(cr.abs().max())
+    for lag, span in ((300, 2002), (2, 9)):
+        with pytest.raises(RuntimeError):
+            kernels.detect_metric_onepass(x, lag, span)
 
 
 @pytest.mark.gpu

@@ -215,18 +215,57 @@ def test_b4_span_limit_raises_as_jax(pallas_ext):
         kernels.detect_metric_fused_2d(torch.as_tensor(ext), 32, 224)
 
 
-# --- the arithmetic of kernel B2's tiles, modelled in float32 NumPy --------
+# --- the arithmetic of kernels B2's and B3's tiles, in float32 NumPy --------
 
 B2_R, B2_THREADS, B2_SEG = 9, 256, 64        # csrc/detect_candidates.cu
+B3_R, B3_THREADS = 9, 256                    # csrc/autocorr_metric.cu
+
+
+def _lag_planes(X, lag, n):
+    """Re and Im of ``X[i] * conj(X[i + lag])`` and ``|X[i]|^2`` for
+    ``i < n``, in float32, as the kernels form them."""
+    a, b = X[:n], X[lag:n + lag]
+    return [(a.real * b.real + a.imag * b.imag).astype(np.float32),
+            (a.imag * b.real - a.real * b.imag).astype(np.float32),
+            (a.real * a.real + a.imag * a.imag).astype(np.float32)]
+
+
+def _chunked_window_sums(planes, span, R, threads):
+    """The span-window sums of kernels B2 and B3 over ``R * threads``
+    offsets in float32, in the kernels' order: thread t owns the chunk of
+    offsets ``q = t * R + r``; each window is the in-chunk suffix sum from
+    r, plus the totals of chunks t+1 .. t+K-1 (and t+K from r = rs on),
+    plus the in-chunk prefix sum at the window end.  Offsets whose windows
+    pass the last chunk read zeros (the kernels read their pads there, and
+    no output reads those offsets)."""
+    f32 = np.float32
+    K = (span - 1) // R
+    rs = R * (K + 1) - span + 1
+    t = np.arange(threads)
+    r = np.arange(R)
+    q = t[:, None] * R + r[None, :]                       # [threads, R]
+    sums = []
+    for p in planes:
+        p = p.astype(f32).reshape(threads, R)
+        pre = np.cumsum(p, axis=1, dtype=f32)
+        suf = np.cumsum(p[:, ::-1], axis=1, dtype=f32)[:, ::-1]
+        tot = np.concatenate([pre[:, -1], np.zeros(K + 1, f32)])
+        mid = np.zeros(threads, f32)
+        for kk in range(1, K):
+            mid = mid + tot[t + kk]
+        mid1 = mid + tot[t + K]
+        pre = np.concatenate([pre.reshape(-1), np.zeros(span, f32)])
+        m = np.where(r[None, :] < rs, mid[:, None], mid1[:, None])
+        sums.append(((suf + m) + pre[q + span - 1]).reshape(-1))
+    return sums
 
 
 def _b2_tile_model(x, lag, span, win, T, thr, k, floor):
     """Kernel B2's schedule on one row ``x`` in float32: per tile of TO
-    outputs, lag products in chunks of B2_R offsets; each window sum is the
-    chunk's in-chunk suffix sum plus the totals of the chunks between plus
-    the in-chunk prefix sum at the window end, summed in the kernel's
-    order; the NMS max takes the same chunked (van Herk) form with max.
-    Returns (vals, locs, e1 at stream offsets -win, -win + 1, ...)."""
+    outputs, lag products in chunks of B2_R offsets and their window sums
+    by :func:`_chunked_window_sums`; the NMS max takes the same chunked
+    (van Herk) form with max.  Returns (vals, locs, e1 at stream offsets
+    -win, -win + 1, ...)."""
     f32 = np.float32
     cap = B2_R * B2_THREADS
     TO = (cap - 2 * win - lag - span + 1) // B2_SEG * B2_SEG
@@ -235,8 +274,8 @@ def _b2_tile_model(x, lag, span, win, T, thr, k, floor):
     segval = np.full(n_seg, -1.0, f32)
     segarg = np.zeros(n_seg, np.int64)
     e1_all = []
-    K, K2 = (span - 1) // B2_R, 2 * win // B2_R
-    rs, rs2 = B2_R * (K + 1) - span + 1, B2_R * (K2 + 1) - 2 * win
+    K2 = 2 * win // B2_R
+    rs2 = B2_R * (K2 + 1) - 2 * win
     t = np.arange(B2_THREADS)
     r = np.arange(B2_R)
     q = (t[:, None] * B2_R + r[None, :])                  # [threads, R]
@@ -244,24 +283,8 @@ def _b2_tile_model(x, lag, span, win, T, thr, k, floor):
         g = n0 - win + np.arange(cap + lag + span)
         X = np.where(g < 0, 0, x[np.clip(g, 0, len(x) - 1)]).astype(
             np.complex64)
-        a, b = X[:cap], X[lag:cap + lag]
-        planes = [a.real * b.real + a.imag * b.imag,
-                  a.imag * b.real - a.real * b.imag,
-                  a.real * a.real + a.imag * a.imag]
-        sums = []
-        for p in planes:
-            p = p.astype(f32).reshape(B2_THREADS, B2_R)
-            pre = np.cumsum(p, axis=1, dtype=f32)
-            suf = np.cumsum(p[:, ::-1], axis=1, dtype=f32)[:, ::-1]
-            tot = np.concatenate([pre[:, -1], np.zeros(K + 1, f32)])
-            mid = np.zeros(B2_THREADS, f32)
-            for kk in range(1, K):
-                mid = mid + tot[t + kk]
-            mid1 = mid + tot[t + K]
-            pre = np.concatenate([pre.reshape(-1), np.zeros(span, f32)])
-            m = np.where(r[None, :] < rs, mid[:, None], mid1[:, None])
-            sums.append(((suf + m) + pre[q + span - 1]).reshape(-1))
-        cr, ci, e1 = sums
+        cr, ci, e1 = _chunked_window_sums(_lag_planes(X, lag, cap), span,
+                                          B2_R, B2_THREADS)
         e1_all.append(e1[:TO])
         e2 = np.concatenate([e1, np.zeros(lag, f32)])[lag:]
         c2 = cr * cr + ci * ci
@@ -293,6 +316,68 @@ def _b2_tile_model(x, lag, span, win, T, thr, k, floor):
     return segval[top], segarg[top], np.concatenate(e1_all)
 
 
+def _b3_tile_model(x, lag, span, floor):
+    """Kernel B3's schedule on one row ``x`` in float32: per tile of TO
+    outputs, the lag products and powers of the block's B3_R * B3_THREADS
+    offsets (samples past the row end repeat the last), their window sums
+    by :func:`_chunked_window_sums`, e2 read from the e1 plane at +lag and
+    the floor-gated metric.  Returns (metric, c, e1), each ``[n_out]``."""
+    f32 = np.float32
+    cap = B3_R * B3_THREADS
+    TO = (cap - lag - span + 1) & ~3
+    n_out = len(x) - span - lag + 1
+    out = []
+    for n0 in range(0, n_out, TO):
+        X = x[np.minimum(n0 + np.arange(cap + lag), len(x) - 1)]
+        cr, ci, e1 = _chunked_window_sums(_lag_planes(X, lag, cap), span,
+                                          B3_R, B3_THREADS)
+        e2 = np.concatenate([e1, np.zeros(lag, f32)])[lag:]
+        met = np.where(np.minimum(e1, e2) > f32(floor),
+                       (cr * cr + ci * ci) / np.maximum(e1 * e2, f32(1e-12)),
+                       0).astype(f32)
+        nv = min(TO, n_out - n0)
+        out.append((met[:nv], (cr + 1j * ci)[:nv].astype(np.complex64),
+                    e1[:nv]))
+    return tuple(np.concatenate(v) for v in zip(*out))
+
+
+def _loud_burst_row(M):
+    """One row of 12,288 samples: a frame at 100x amplitude (+40 dB over a
+    unit frame) from 300, then 0.01-rms noise and, 2,000 samples after the
+    burst, a unit frame.  Returns (row, burst end, unit frame start)."""
+    params = tofdm.make_ofdm_params(M, {16: 4}.get(M, M // 8),
+                                    {16: 2}.get(M, 4))
+    rng = np.random.default_rng(40)
+    frame = [tofdm.assemble_frame(
+        params, tofdm.default_props(),
+        torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+        torch.as_tensor(rng.integers(0, 256, 32, dtype=np.uint8))).numpy()
+        for _ in range(2)]
+    x = (0.01 * (rng.normal(size=3 * 4096) + 1j * rng.normal(size=3 * 4096))
+         ).astype(np.complex64)
+    end = 300 + len(frame[0])
+    x[300:end] += 100.0 * frame[0]
+    pos = end + 2000
+    x[pos:pos + len(frame[1])] += frame[1]
+    return x, end, pos
+
+
+def _sliding_sums(v, span):
+    """Window sums of ``v`` by a float32 (complex64) running add and
+    subtract, for contrast with the kernels' chunked sums."""
+    run = np.zeros(len(v) - span, v.dtype)
+    acc = v[:span].sum(dtype=v.dtype)
+    for m in range(len(v) - span):
+        run[m] = acc
+        acc = (acc + v[m + span]) - v[m]
+    return run
+
+
+def _row_floor64(x, span):
+    return 1e-4 * span * (float(np.sum(np.abs(x.astype(np.complex128)) ** 2))
+                          / len(x) + 1e-12)
+
+
 def test_b2_tile_arithmetic_after_a_loud_burst():
     """A frame at 100x amplitude (+40 dB over a unit frame) ends mid-row,
     then 0.01-rms noise and a unit frame follow.  The float32 model of
@@ -305,23 +390,11 @@ def test_b2_tile_arithmetic_after_a_loud_burst():
     M = 48
     lag, win = M // 4, M
     span = jofdm.NUM_S0 * M - lag
-    params = tofdm.make_ofdm_params(M, 6, 4)
-    rng = np.random.default_rng(40)
-    frame = [tofdm.assemble_frame(
-        params, tofdm.default_props(),
-        torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
-        torch.as_tensor(rng.integers(0, 256, 32, dtype=np.uint8))).numpy()
-        for _ in range(2)]
-    x = (0.01 * (rng.normal(size=3 * 4096) + 1j * rng.normal(size=3 * 4096))
-         ).astype(np.complex64)
-    x[300:300 + len(frame[0])] += 100.0 * frame[0]
-    pos = 300 + len(frame[0]) + 2000
-    x[pos:pos + len(frame[1])] += frame[1]
+    x, end, pos = _loud_burst_row(M)
     T = len(x) - span - lag + 1 - 2 * win
     k = 8
-    floor = 1e-4 * span * (float(np.sum(np.abs(x.astype(np.complex128)) ** 2))
-                           / len(x) + 1e-12)
-    vals, locs, e1 = _b2_tile_model(x, lag, span, win, T, 0.5, k, floor)
+    vals, locs, e1 = _b2_tile_model(x, lag, span, win, T, 0.5, k,
+                                    _row_floor64(x, span))
     pv, pl, _ = kernels.detect_candidates_plain(torch.as_tensor(x), lag, span,
                                                 win, T, 0.5, k)
     det = vals > 0
@@ -334,16 +407,48 @@ def test_b2_tile_arithmetic_after_a_loud_burst():
                                atol=1e-5)
     # window sums of |x|^2 after the burst, across tile edges
     p64 = np.abs(x.astype(np.complex128)) ** 2
-    quiet = np.arange(300 + len(frame[0]) + 10, pos - span - 10)
+    quiet = np.arange(end + 10, pos - span - 10)
     want = np.array([p64[m:m + span].sum() for m in quiet])
     got = e1[quiet + win]
     assert np.abs(got - want).max() <= 1e-5 * want.max()
     # the sliding float32 sum of the same row, for contrast
-    run = np.zeros(len(x), np.float32)
-    p32 = p64.astype(np.float32)
-    acc = np.float32(p32[:span].sum(dtype=np.float32))
-    for m in range(len(x) - span):
-        run[m] = acc
-        acc = np.float32(acc + p32[m + span]) - p32[m]
+    run = _sliding_sums(p64.astype(np.float32), span)
     slide_err = np.abs(run[quiet] - want).max()
     assert slide_err > 100 * np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("M", [16, 48])
+def test_b3_tile_arithmetic_after_a_loud_burst(M):
+    """The loud-burst row of the B2 test through a float32 model of kernel
+    B3's tiles (M = 16: the generic instance's geometry, and the tiles
+    are longer; M = 48: the path's).  Its e1 and c over the quiet part stay
+    within 1e-5 (relative to the largest there) of float64 sums, across
+    tile edges; a sliding float32 sum keeps a residue of the burst there
+    over 100x larger; and its metric passes the same floor gate as
+    :func:`kernels.autocorr_metric`'s, within 1e-5 of it everywhere."""
+    lag = M // 4
+    span = jofdm.NUM_S0 * M - lag
+    x, end, pos = _loud_burst_row(M)
+    metric, c, e1 = _b3_tile_model(x, lag, span, _row_floor64(x, span))
+    n_out = len(x) - span - lag + 1
+    assert metric.shape == c.shape == e1.shape == (n_out,)
+    assert n_out > (B3_R * B3_THREADS - lag - span + 1) // 4 * 4 * 4
+    pm, pc = kernels.autocorr_metric(torch.as_tensor(x), lag, span)
+    np.testing.assert_array_equal(metric > 0, pm.numpy() > 0)
+    assert np.abs(metric - pm.numpy()).max() <= 1e-5
+    # e1 and c of the windows between the burst and the unit frame
+    x64 = x.astype(np.complex128)
+    p64 = np.abs(x64) ** 2
+    prod64 = x64[:-lag] * np.conj(x64[lag:])
+    quiet = np.arange(end + 10, pos - span - lag - 10)
+    e1_64 = np.array([p64[m:m + span].sum() for m in quiet])
+    c64 = np.array([prod64[m:m + span].sum() for m in quiet])
+    e1_err = np.abs(e1[quiet] - e1_64).max()
+    c_err = np.abs(c[quiet] - c64).max()
+    assert e1_err <= 1e-5 * e1_64.max()
+    assert c_err <= 1e-5 * np.abs(c64).max()
+    # sliding float32 sums of the same row, for contrast
+    e1_slide = _sliding_sums(p64.astype(np.float32), span)[quiet]
+    c_slide = _sliding_sums(prod64.astype(np.complex64), span)[quiet]
+    assert np.abs(e1_slide - e1_64).max() > 100 * e1_err
+    assert np.abs(c_slide - c64).max() > 100 * c_err
