@@ -1,10 +1,11 @@
 """On-card smoke run of the PyTorch/CUDA port (``liquid_usrp_tpu_torch``).
 
-Drives the port's two paths once on one CUDA device and checks them: the
+Drives the port's three paths once on one CUDA device and checks them: the
 multichannel OFDM receiver (NCO mix-down -> 2N-bin PFB analyzer -> batched
-N-channel detect + decode) at the full bench configuration, and the
+N-channel detect + decode) at the full bench configuration, the
 single-channel OFDM transceiver (``OfdmTxRx``, the ``ofdmflexframe_tx/rx``
-apps) at the app defaults:
+apps) and the single-carrier flexframe path (``flexframe_tx/rx``,
+``packet_tx/rx``: FIR, resamplers, flexframe sync) at the app defaults:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``liquid_usrp_tpu_torch/csrc``;
@@ -57,7 +58,36 @@ apps) at the app defaults:
 10. decode-verified samples/s of the single-channel path per detect
    config, and the time of one 8-block dispatch, over a smoke window;
 11. B4 and B5 lie on no path: their launch counts, summed over the path
-   runs of 4, 7, 8 and 9, must be 0.
+   runs of 4, 7, 8, 9, 12 and 14, must be 0;
+12. the single-carrier flexframe path at the app defaults:
+   ``flexframe_tx.main`` writes 40 frames (1024-byte QPSK payloads, FEC
+   none + Hamming(12,8), CRC32, -12 dB, ``-r 2.0``, seed 42);
+   ``flexframe_rx.main`` (``-r 0.5``, ``block_size=8192``,
+   ``max_payload=2048``, ``max_frames=4``, 8-block dispatches through
+   ``iter_sync_results``) must report 40/40 valid; the same sync driven
+   directly must return the 40 regenerated headers and payloads byte for
+   byte in stream order; then the stream through ``--snr 20 --cfo 0.01``
+   (rad/sample at the file rate, 0.02 after the RX resampler): every frame
+   decodes with its offset within 2e-3 of 0.02, by the app and directly;
+13. the flexframe front end on the card against the port on the CPU: on
+   every 8-block dispatch of the stream (the first one detects nothing:
+   its detect regions lie in the zeros the sync starts from),
+   ``_mf_and_detect`` gives the same ``detected`` and detected offsets, ``mf``
+   within 1e-5 of max |mf|, and the metric within 1e-4 where the window
+   energy is at least 100x the silence floor (the float32 cumsum of the
+   energy sums in another order on each device, which near the floor
+   moves the metric and can move the gate; the largest difference
+   anywhere is printed); ``msresamp_block`` at rates 0.5 (the file) and
+   2.0 (the resampled stream) gives the CPU's count, with ``y`` within
+   1e-5 of max |y|;
+14. the packet (frame64) path: ``packet_tx.main`` writes 40 bursts and
+   ``packet_rx.main`` reports 40/40 valid and no foreign burst; the sync
+   driven directly returns the regenerated payloads;
+15. the flexframe path's own times (CUDA events, after a warm-up):
+   decode-verified input samples/s of the receiver over the whole
+   resampled stream (every run checked), ms per 8-block dispatch, and ms
+   of the RX ``msresamp`` over the stream.  B1-B5 launch on neither the
+   flexframe nor the packet path: their counts there must be 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -129,6 +159,15 @@ SC_CONFIGS = {(True, 0): None, (True, 1): "detect_metric_xcorr_onepass",
               (False, 0): None, (False, 1): "detect_metric_onepass",
               (False, 2): "detect_candidates_onepass"}
 SC_TIMED_RUNS = 2
+# the flexframe path at the flexframe_tx/rx defaults
+FF_FRAMES, FF_PAYLOAD, FF_SEED = 40, 1024, 42
+FF_BLOCK, FF_BATCH, FF_MAX_PAYLOAD, FF_MAX_FRAMES = 8192, 8, 2048, 4
+FF_RX_RATE = 0.5               # flexframe_rx/packet_rx -r default
+FF_CFO = 0.01                  # rad/sample at the file rate (k = 4)
+FF_CFO_ATOL = 2e-3
+FF_METRIC_LOUD = 100.0         # metric held where energy >= this x floor
+FF_TIMED_RUNS = 2
+FF_DISPATCH = 2                # the timed dispatch: blocks 16..23
 # the multichannel receiver below the fused kernel's M >= 32
 M16, CP16, TAPER16 = 16, 4, 2
 
@@ -161,23 +200,28 @@ def kernel_device_us(fn, kernel: str, iters: int = DEVICE_ITERS) -> float:
     """Mean device microseconds of the CUDA kernel named ``kernel`` over
     ``iters`` back-to-back calls of ``fn`` (``torch.profiler``: the
     kernel's own time on the card, without the wrapper's other work or
-    the host's launch gaps)."""
+    the host's launch gaps).  The profiler can lose a few activity records
+    of a window; a window that does not show every launch is traced
+    again, at most three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in ev)
-    if n != iters:
-        raise AssertionError(f"profiler saw {n} launches of {kernel}, "
-                             f"expected {iters}")
-    return sum(getattr(e, "self_device_time_total", None) or
-               e.self_cuda_time_total for e in ev) / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in ev)
+        if n == iters:
+            return sum(getattr(e, "self_device_time_total", None) or
+                       e.self_cuda_time_total for e in ev) / n
+        print(f"profiler saw {n} launches of {kernel} of {iters}: traced "
+              f"again", flush=True)
+    raise AssertionError(f"profiler saw {n} launches of {kernel}, "
+                         f"expected {iters}")
 
 
 def bound(nbytes: float, flops: float):
@@ -780,6 +824,326 @@ def run_mcrx_m16(noise, flush, weights, dev):
     return launches
 
 
+def run_app(main_fn, argv) -> str:
+    """One CLI ``main(argv)`` with its standard output captured; raises
+    unless it returns 0."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}, {out.getvalue()[-400:]}")
+    return out.getvalue()
+
+
+def app_count(text: str, what: str) -> int:
+    """A count of the RX apps' report (``valid packets``, ...), 0 when the
+    line is absent."""
+    got = re.search(what + r"\s+:\s+(\d+)", text)
+    return int(got.group(1)) if got else 0
+
+
+def tx_draws(n, seed, user, payload):
+    """The (header, payload) of each packet id as the flexframe and packet
+    TX apps draw them from their seed: the id in header bytes 0-1, the
+    other header bytes and the payload random."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for pid in range(n):
+        h = np.empty(user, np.uint8)
+        h[0], h[1] = (pid >> 8) & 0xFF, pid & 0xFF
+        h[2:] = rng.integers(0, 256, user - 2, dtype=np.uint8)
+        out.append((h, rng.integers(0, 256, payload, dtype=np.uint8)))
+    return out
+
+
+def ff_sync(frame64=False):
+    """The flexframe_rx (or, with ``frame64``, packet_rx) synchronizer."""
+    from liquid_usrp_tpu_torch.framing import flexframe as ff
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    if frame64:
+        return fs.make_flex_sync(ff.make_flex_params(), block_size=FF_BLOCK,
+                                 max_payload=ff.FRAME64_PAYLOAD,
+                                 max_frames=FF_MAX_FRAMES,
+                                 header_user=ff.FRAME64_HEADER_USER)
+    return fs.make_flex_sync(ff.make_flex_params(), block_size=FF_BLOCK,
+                             max_payload=FF_MAX_PAYLOAD,
+                             max_frames=FF_MAX_FRAMES)
+
+
+def ff_decode(sync, stream, dev):
+    """The resampled ``stream`` through ``iter_sync_results`` as the RX
+    apps drive it (8-block batched dispatches, single-block steps for the
+    rest): every detected frame, in stream order, as a dict."""
+    from liquid_usrp_tpu_torch.apps.common import iter_sync_results
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    frames = []
+    for r in iter_sync_results(
+            fs.make_flex_sync_step(sync), fs.flex_sync_init(sync, dev),
+            stream, sync.block_size, sync.overlap,
+            batched_fn=lambda st, b: fs.flex_sync_blocks_batched(sync, st,
+                                                                 b),
+            batch_blocks=FF_BATCH):
+        for i in np.nonzero(r.detected)[0]:
+            frames.append(dict(
+                t=int(r.t_start[i]), valid=bool(r.payload_valid[i]),
+                header=r.header[i].copy(), cfo=float(r.cfo[i]),
+                payload=r.payload[i][:int(r.payload_len[i])].copy()))
+    return sorted(frames, key=lambda f: f["t"])
+
+
+def check_ff_frames(what, frames, sent, cfo=None, exact_count=True):
+    """Raise unless the payload-valid ``frames`` are the ``sent`` (header,
+    payload) pairs byte for byte in stream order (and, with
+    ``exact_count``, nothing else was detected), each offset within
+    ``FF_CFO_ATOL`` of ``cfo``.  Returns the largest offset error."""
+    ok = [f for f in frames if f["valid"]]
+    if len(ok) != len(sent) or (exact_count and len(frames) != len(sent)):
+        raise AssertionError(f"{what}: {len(ok)} valid of {len(frames)} "
+                             f"detected for {len(sent)} sent")
+    for f, (h, p) in zip(ok, sent):
+        if not (np.array_equal(f["header"], h) and
+                np.array_equal(f["payload"], p)):
+            raise AssertionError(f"{what}: frame at {f['t']} is not the "
+                                 f"packet sent there")
+    if cfo is None:
+        return 0.0
+    err = max(abs(f["cfo"] - cfo) for f in ok)
+    if not err <= FF_CFO_ATOL:
+        raise AssertionError(f"{what}: CFO estimate off by {err}")
+    return err
+
+
+def ff_transmit(path, dev):
+    """``flexframe_tx.main`` at its defaults (``FF_FRAMES`` frames of
+    ``FF_PAYLOAD`` bytes, seed ``FF_SEED``, ``-r 2.0``) into ``path``: the
+    file stream and the stream the RX apps decode (resampled at
+    ``FF_RX_RATE`` on ``dev``)."""
+    from liquid_usrp_tpu_torch.apps import flexframe_tx
+    from liquid_usrp_tpu_torch.apps.common import resample_stream
+    from liquid_usrp_tpu_torch.io.streams import read_iq
+    run_app(flexframe_tx.main, ["-o", path, "-N", str(FF_FRAMES), "-P",
+                                str(FF_PAYLOAD), "-s", str(FF_SEED)])
+    file_stream = read_iq(path)
+    return file_stream, resample_stream(file_stream, FF_RX_RATE, dev)
+
+
+def ff_dispatch_input(sync, rx_stream, dev):
+    """The sync state carried into dispatch ``FF_DISPATCH`` of
+    ``rx_stream`` and that dispatch's ``[FF_BATCH, block]`` blocks, on
+    ``dev``."""
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    first = FF_DISPATCH * FF_BATCH
+    exts = ff_windows(sync, rx_stream, first)
+    st = fs.FlexSyncState(
+        tail=exts[0, :sync.overlap].to(dev),
+        base=torch.tensor(first * sync.block_size - sync.overlap,
+                          dtype=torch.int32, device=dev))
+    return st, exts[:, sync.overlap:].contiguous().to(dev)
+
+
+def ff_windows(sync, stream, first_block, n=FF_BATCH):
+    """The host extended windows ``[n, overlap + block]`` of blocks
+    ``first_block ..`` of the resampled ``stream``, as the sync sees them
+    from its initial state."""
+    bs = sync.block_size
+    full = np.zeros(sync.overlap + (first_block + n) * bs, np.complex64)
+    body = stream[:(first_block + n) * bs]
+    full[sync.overlap:sync.overlap + len(body)] = body
+    return torch.as_tensor(full).unfold(0, sync.overlap + bs, bs)[
+        first_block:first_block + n]
+
+
+def check_ff_front_end(sync, rx_stream, file_stream, dev):
+    """The flexframe front end and the RX/TX resamplers on the card against
+    the port on the CPU.  ``_mf_and_detect`` over every 8-block dispatch of
+    ``rx_stream``: ``detected`` and the detected offsets identical, ``mf``
+    within 1e-5 of max |mf|, the metric within 1e-4 where the window energy
+    is at least ``FF_METRIC_LOUD`` times the silence floor (the float32
+    cumsum of the energy sums in another order on each device: near the
+    floor that moves the metric, and can move the gate); ``msresamp_block``
+    at 0.5 on
+    ``file_stream`` and at 2.0 on ``rx_stream``: the same count, ``y``
+    within 1e-5 of max |y|."""
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.ops import resamp
+    from liquid_usrp_tpu_torch.ops.corr import comb_moving_sum
+    bs = sync.block_size
+    n_blocks = -(-len(rx_stream) // bs) + -(-sync.overlap // bs) + 1
+    mf_err = m_loud = m_all = 0.0
+    flips = n_det = n_dispatches = 0
+    half, shift = 32, 32 * sync.params.k     # preamble halves, as the sync
+    for first in range(0, n_blocks - FF_BATCH + 1, FF_BATCH):
+        ext = ff_windows(sync, rx_stream, first)
+        got = [v.cpu() for v in fs._mf_and_detect(sync, ext.to(dev))]
+        mf, metric, _, _, det, locs = fs._mf_and_detect(sync, ext)
+        # the offsets of undetected slots are unspecified (top-k ties)
+        if not (torch.equal(got[4], det) and
+                torch.equal(got[5][det], locs[det])):
+            raise AssertionError(f"flexframe front end, blocks {first}..: "
+                                 f"candidates differ from the CPU's")
+        mf_err = max(mf_err, float((got[0] - mf).abs().max() /
+                                   mf.abs().max().clamp(min=1e-30)))
+        pw = mf.abs() ** 2
+        n = metric.shape[-1]
+        e = comb_moving_sum(pw, half, sync.params.k, n + shift)
+        energy = e[..., :n] + e[..., shift:]
+        floor = 1e-4 * 64 * (pw.mean(-1, keepdim=True) + 1e-12)
+        diff = (got[1] - metric).abs()
+        loud = energy >= FF_METRIC_LOUD * floor
+        m_all = max(m_all, float(diff.max()))
+        if bool(loud.any()):
+            m_loud = max(m_loud, float(diff[loud].max()))
+        flips += int(((got[1] == 0) != (metric == 0)).sum())
+        n_det += int(det.sum())
+        n_dispatches += 1
+    print(f"flexframe front end on the card vs the CPU over "
+          f"{n_dispatches} dispatches ({n_det} detections, identical with "
+          f"their offsets): mf max diff {mf_err:.3e} of max |mf| "
+          f"(limit 1e-5); metric max abs diff {m_loud:.3e} where the energy "
+          f">= {FF_METRIC_LOUD:g}x the floor (limit 1e-4), {m_all:.3e} "
+          f"anywhere with {flips} silence-gate flips (not held)",
+          flush=True)
+    if not (mf_err <= 1e-5 and m_loud <= 1e-4 and n_det > 0):
+        raise AssertionError("flexframe front end: the card disagrees with "
+                             "the CPU")
+    for rate, x in ((FF_RX_RATE, file_stream), (2.0, rx_stream)):
+        ms = resamp.msresamp_create(rate)
+        n = len(x) - len(x) % (2 ** ms.num_halfband)
+        out = []
+        for d in (dev, torch.device("cpu")):
+            _, y, _, c = resamp.msresamp_block(
+                ms, resamp.msresamp_state(ms, d),
+                torch.as_tensor(x[:n], device=d))
+            out.append((int(c), y[:int(c)].cpu()))
+        err = float((out[0][1] - out[1][1]).abs().max() /
+                    out[1][1].abs().max())
+        print(f"msresamp_block at rate {rate} on the card vs the CPU: "
+              f"{out[0][0]} outputs (CPU {out[1][0]}) from {n}, max diff "
+              f"{err:.3e} of max |y| (limit 1e-5)", flush=True)
+        if not (out[0][0] == out[1][0] and err <= 1e-5):
+            raise AssertionError(f"msresamp_block at rate {rate}: the card "
+                                 f"disagrees with the CPU")
+
+
+def run_flexframe(dev, tmpdir, label):
+    """The single-carrier flexframe path at the app defaults (phases 12,
+    13 and 15).  Returns the kernel launch counts of its runs."""
+    from liquid_usrp_tpu_torch.apps import flexframe_rx
+    from liquid_usrp_tpu_torch.apps.common import (apply_channel,
+                                                   occupied_power,
+                                                   resample_stream)
+    from liquid_usrp_tpu_torch.framing import flexframe as ff
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    from liquid_usrp_tpu_torch.ops import kernels, resamp
+    path = str(Path(tmpdir) / "flexframe.iq")
+    sent = tx_draws(FF_FRAMES, FF_SEED, ff.FLEX_HEADER_USER, FF_PAYLOAD)
+    sync = ff_sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    file_stream, rx_stream = ff_transmit(path, dev)
+    t_tx = time.perf_counter() - t0
+    text = run_app(flexframe_rx.main, ["-i", path, "-q"])
+    if app_count(text, "valid packets") != FF_FRAMES:
+        raise AssertionError(f"flexframe_rx: {text[-400:]}")
+    frames = ff_decode(sync, rx_stream, dev)
+    check_ff_frames("flexframe sync", frames, sent)
+    flags = {"snr": "20", "cfo": str(FF_CFO)}
+    text = run_app(flexframe_rx.main, ["-i", path, "-q", "--snr", "20",
+                                       "--cfo", str(FF_CFO)])
+    if app_count(text, "valid packets") != FF_FRAMES:
+        raise AssertionError(f"flexframe_rx --snr 20 --cfo {FF_CFO}: "
+                             f"{text[-400:]}")
+    impaired = resample_stream(apply_channel(
+        file_stream, flags, signal_power=occupied_power(file_stream)),
+        FF_RX_RATE, dev)
+    cfo_rx = FF_CFO / FF_RX_RATE
+    cfo_err = check_ff_frames(f"flexframe sync, --snr 20 --cfo {FF_CFO}",
+                              ff_decode(sync, impaired, dev), sent, cfo_rx,
+                              exact_count=False)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    print(f"flexframe: flexframe_tx wrote {FF_FRAMES} frames of "
+          f"{FF_PAYLOAD} bytes ({len(file_stream)} samples, "
+          f"{t_tx:.1f} s); flexframe_rx and the sync decode "
+          f"{FF_FRAMES}/{FF_FRAMES}, headers and payloads byte for byte in "
+          f"stream order ({len(rx_stream)} samples at k=2); with --snr 20 "
+          f"--cfo {FF_CFO} {FF_FRAMES}/{FF_FRAMES} by the app and the sync, "
+          f"offsets within {cfo_err:.2e} of {cfo_rx} (limit {FF_CFO_ATOL}); "
+          f"kernel launches {launches}", flush=True)
+
+    check_ff_front_end(sync, rx_stream, file_stream, dev)
+
+    # decode-verified timings (CUDA events): whole-stream decodes, each
+    # checked; one 8-block dispatch (``FF_DISPATCH``) from the state the
+    # sync carries into it, each giving the same count; the RX resampler
+    # over the file
+    runs = []
+    for _ in range(FF_TIMED_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        frames = ff_decode(sync, rx_stream, dev)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+        check_ff_frames("flexframe, timed run", frames, sent)
+    st, blocks = ff_dispatch_input(sync, rx_stream, dev)
+    counts = []
+
+    def dispatch():
+        _, res = fs.flex_sync_blocks_batched(sync, st, blocks)
+        counts.append(int(_to_host(res).payload_valid.sum()))
+    disp_ms = cuda_ms(dispatch, 5)
+    if len(set(counts)) != 1 or counts[0] <= 0:
+        raise AssertionError(f"flexframe timed dispatches decoded {counts}")
+    ms = resamp.msresamp_create(FF_RX_RATE)
+    x_file = torch.as_tensor(file_stream[:len(file_stream) - len(
+        file_stream) % 2 ** ms.num_halfband], device=dev)
+    ms_rx = cuda_ms(lambda: resamp.msresamp_block(
+        ms, resamp.msresamp_state(ms, dev), x_file), 3)
+    sps = len(rx_stream) / (min(runs) * 1e-3)
+    print(f"flexframe timing: {sps / 1e6:.4f} MS/s decode-verified (best of "
+          f"{FF_TIMED_RUNS} whole-stream runs, {min(runs):.1f} ms for "
+          f"{len(rx_stream)} samples at k=2, {FF_FRAMES}/{FF_FRAMES} each); "
+          f"{disp_ms:.3f} ms per {FF_BATCH}-block dispatch (blocks "
+          f"{FF_DISPATCH * FF_BATCH}.., {counts[0]} frames); RX msresamp at "
+          f"{FF_RX_RATE} over the {len(file_stream)}-sample file "
+          f"{ms_rx:.3f} ms on {label}", flush=True)
+    return launches
+
+
+def run_packet(dev, tmpdir):
+    """The packet (frame64) path at the app defaults (phase 14).  Returns
+    the kernel launch counts of its runs."""
+    from liquid_usrp_tpu_torch.apps import packet_rx, packet_tx
+    from liquid_usrp_tpu_torch.apps.common import resample_stream
+    from liquid_usrp_tpu_torch.framing import flexframe as ff
+    from liquid_usrp_tpu_torch.io.streams import read_iq
+    from liquid_usrp_tpu_torch.ops import kernels
+    path = str(Path(tmpdir) / "packet.iq")
+    sent = tx_draws(FF_FRAMES, FF_SEED, ff.FRAME64_HEADER_USER,
+                    ff.FRAME64_PAYLOAD)
+    kernels.reset_launch_counts()
+    run_app(packet_tx.main, ["-o", path, "-N", str(FF_FRAMES)])
+    text = run_app(packet_rx.main, ["-i", path, "-q"])
+    foreign = app_count(text, "non-frame64 bursts")
+    if app_count(text, "valid packets") != FF_FRAMES or foreign:
+        raise AssertionError(f"packet_rx: {text[-400:]}")
+    stream = read_iq(path)
+    check_ff_frames("frame64 sync", ff_decode(
+        ff_sync(frame64=True), resample_stream(stream, FF_RX_RATE, dev),
+        dev), sent)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    print(f"packet: packet_tx wrote {FF_FRAMES} frame64 bursts "
+          f"({len(stream)} samples); packet_rx {FF_FRAMES}/{FF_FRAMES} "
+          f"valid, {foreign} foreign bursts; the sync returns the "
+          f"{FF_FRAMES} headers and payloads byte for byte; kernel launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -863,6 +1227,18 @@ def main() -> int:
         path_runs += [*sc_launches.values(),
                       check_debug_print(stream, dev, tmpdir)]
     path_runs.append(run_mcrx_m16(noise, flush, weights, dev))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ff_runs = [run_flexframe(dev, tmpdir, label),
+                   run_packet(dev, tmpdir)]
+    # the flexframe and packet paths run no kernel
+    for name in KERNELS:
+        n = sum(run[name] for run in ff_runs)
+        if n != 0:
+            raise AssertionError(f"{name} was launched {n} times by the "
+                                 f"flexframe and packet paths")
+    print(f"flexframe and packet paths: B1-B5 launched 0 times "
+          f"({', '.join(KERNELS)})", flush=True)
+    path_runs += ff_runs
     # B3 is on the single-channel path (legacy detector, level 1); B4 and
     # B5 are on no path (the JAX package calls them only from tests): their
     # counts over every path run above must be 0

@@ -1,11 +1,12 @@
 """Shared app plumbing: getopt-compatible flags, channel impairments,
-RX statistics and the framesync debug dump.
+resampling, the synchronizer drive loop, RX statistics and the framesync
+debug dump.
 
-Port of the parts of ``liquid_usrp_tpu/apps/common.py`` the OFDM apps use
-(``parse_args``, ``budget_note``, ``occupied_power``,
-``print_usage_schemes``, ``apply_channel``, ``RxStats``,
-``dump_framesync_octave``), plus :func:`reject_unported` for flags whose
-machinery is not ported yet.
+Port of the parts of ``liquid_usrp_tpu/apps/common.py`` the OFDM and
+flexframe apps use (``parse_args``, ``budget_note``, ``occupied_power``,
+``print_usage_schemes``, ``apply_channel``, ``apply_msresamp``,
+``iter_sync_results``, ``RxStats``, ``dump_framesync_octave``), plus
+:func:`reject_unported` for flags whose machinery is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +20,88 @@ from ..ops import fec as fec_mod
 from ..ops import modem as modem_mod
 
 __all__ = ["parse_args", "reject_unported", "budget_note", "occupied_power",
-           "print_usage_schemes", "apply_channel", "RxStats",
+           "print_usage_schemes", "apply_channel", "apply_msresamp",
+           "resample_stream", "iter_sync_results", "RxStats",
            "dump_framesync_octave"]
+
+
+def iter_sync_results(step, init_state, stream, block_size: int,
+                      overlap: int, batched_fn=None, batch_blocks: int = 8):
+    """Drive a synchronizer over a whole host stream; yield per-block
+    results (NamedTuples of NumPy arrays, leading axis ``[max_frames]``)
+    in stream order.
+
+    The stream is padded with the flush tail (the carried overlap fully
+    drains) and uploaded to the device of ``init_state.tail`` once.  With
+    ``batched_fn(state, blocks)``, runs of ``batch_blocks`` full blocks go
+    as one batched call with one device-to-host copy of its results; the
+    leftover blocks go through the single-block ``step``."""
+    from ..models.ofdmtxrx import _to_host
+    bs = block_size
+    flush = int(np.ceil(overlap / bs)) + 1
+    n_blocks = -(-len(stream) // bs) + flush
+    x = np.zeros(n_blocks * bs, np.complex64)
+    x[:len(stream)] = stream
+    x = torch.as_tensor(x, device=init_state.tail.device).reshape(
+        n_blocks, bs)
+    state = init_state
+    batched = batched_fn is not None and batch_blocks > 1
+    b = 0
+    while b < n_blocks:
+        if batched and n_blocks - b >= batch_blocks:
+            state, res = batched_fn(state, x[b:b + batch_blocks])
+            res_np = _to_host(res)
+            for j in range(batch_blocks):
+                yield type(res_np)(*(f[j] for f in res_np))
+            b += batch_blocks
+        else:
+            state, res = step(state, x[b])
+            yield _to_host(res)
+            b += 1
+
+
+def resample_stream(stream: np.ndarray, rate: float, device,
+                    trim: bool = True) -> np.ndarray:
+    """One ``msresamp_block`` over a whole host stream on ``device`` (the
+    frame apps' TX and RX resampling): the valid outputs as NumPy.
+    ``trim`` first cuts the stream to a multiple of the decimation
+    granularity (``2**num_halfband``)."""
+    from ..ops import resamp as resamp_mod
+    ms = resamp_mod.msresamp_create(rate)
+    st = resamp_mod.msresamp_state(ms, device)
+    div = 2 ** ms.num_halfband if not ms.is_interp else 1
+    n = len(stream) - len(stream) % div if trim else len(stream)
+    _, y, _, count = resamp_mod.msresamp_block(
+        ms, st, torch.as_tensor(np.asarray(stream[:n], np.complex64),
+                                device=device))
+    return y[:int(count)].cpu().numpy()
+
+
+def apply_msresamp(stream: np.ndarray, rate: float,
+                   device=None) -> np.ndarray:
+    """Resample a whole host stream through the streaming msresamp chain
+    on ``device`` (the default device when ``None``), in chunks that keep
+    the decimation granularity (``2**num_halfband``); rate 1.0 is the
+    identity."""
+    if rate == 1.0 or not len(stream):
+        return stream
+    from ..ops import resamp as resamp_mod
+    from ..utils.device import default_device
+    dev = default_device(device)
+    ms = resamp_mod.msresamp_create(rate)
+    st = resamp_mod.msresamp_state(ms, dev)
+    gran = 2 ** ms.num_halfband if not ms.is_interp else 1
+    chunk = -(-16384 // gran) * gran
+    pad = (-len(stream)) % chunk
+    x = torch.as_tensor(np.concatenate([stream, np.zeros(pad, np.complex64)]),
+                        device=dev)
+    outs = []
+    for i in range(0, x.shape[0], chunk):
+        st, y, _, count = resamp_mod.msresamp_block(ms, st, x[i:i + chunk])
+        outs.append(y[:int(count)])
+    out = torch.cat(outs).cpu().numpy()
+    # trim the resampled image of the padding tail
+    return out[:int(round(len(stream) * rate))]
 
 
 def parse_args(argv, optstring: str, long_opts=None):

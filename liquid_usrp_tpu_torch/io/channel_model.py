@@ -1,17 +1,19 @@
 """Synthetic channel impairments for loopback testing.
 
-Port of ``liquid_usrp_tpu/io/channel_model.py``: gain, multipath, integer
-delay, carrier frequency offset and phase, and AWGN at an exact SNR, applied
-to a complex64 stream on its own device.  The noise comes from an explicit
-``torch.Generator`` (on the stream's device), so a run is reproducible from
-its seed; it cannot reproduce JAX's PRNG bits, so the noise matches JAX in
-distribution, not sample for sample.
+Port of ``liquid_usrp_tpu/io/channel_model.py``: gain, sample-rate offset,
+multipath, integer delay, carrier frequency offset and phase, and AWGN at an
+exact SNR, applied to a complex64 stream on its own device.  The noise
+comes from an explicit ``torch.Generator`` (on the stream's device), so a
+run is reproducible from its seed; it cannot reproduce JAX's PRNG bits, so
+the noise matches JAX in distribution, not sample for sample.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+from ..ops import resamp as resamp_mod
 
 __all__ = ["Channel", "channel_apply", "awgn", "snr_to_noise_std"]
 
@@ -42,12 +44,18 @@ def awgn(generator: torch.Generator, x: torch.Tensor, snr_db: float,
 
 def channel_apply(ch: Channel, generator: torch.Generator, x: torch.Tensor,
                   signal_power: float = 1.0) -> torch.Tensor:
-    """Apply gain -> multipath -> delay -> CFO/phase -> AWGN to a stream."""
-    if ch.sro_ppm != 0.0:
-        raise NotImplementedError(
-            "a sample-rate offset needs the arbitrary resampler "
-            "(liquid_usrp_tpu/ops/resamp.py), which is not ported yet")
+    """Apply gain -> sample-rate offset -> multipath -> delay -> CFO/phase
+    -> AWGN to a stream."""
     y = x.to(torch.complex64) * ch.gain
+    if ch.sro_ppm != 0.0:
+        # max_den bounded so resamp_block's int32 timing stays safe (its
+        # guard trips past about 65k samples, as in JAX); the rate rounding
+        # is far below the ppm-scale effect being modeled.  The trailing
+        # invalid slots are zeros.
+        rs = resamp_mod.resamp_create(1.0 + ch.sro_ppm * 1e-6,
+                                      max_den=1 << 15)
+        _, y, _, _ = resamp_mod.resamp_block(
+            rs, resamp_mod.resamp_state(rs, y.device), y)
     if ch.multipath is not None:
         # jnp.convolve(y, taps, "full")[:n]: tap k delays y by k samples
         taps = torch.tensor(ch.multipath, dtype=torch.complex64)

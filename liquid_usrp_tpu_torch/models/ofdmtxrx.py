@@ -47,9 +47,10 @@ class RadioConfig:
     rx_antenna: str = "RX2"
 
 
-def _to_host(res: ofdm_sync.FrameResults) -> ofdm_sync.FrameResults:
-    """Every field of ``res`` as NumPy, in one device-to-host copy: the
-    fields travel packed as bytes."""
+def _to_host(res):
+    """Every field of the results NamedTuple ``res`` (``FrameResults``,
+    ``FlexResults``) as NumPy, in one device-to-host copy: the fields travel
+    packed as bytes."""
     packed = torch.cat([v.contiguous().reshape(-1).view(torch.uint8)
                         for v in res]).cpu().numpy()
     out, off = [], 0
@@ -58,7 +59,7 @@ def _to_host(res: ofdm_sync.FrameResults) -> ofdm_sync.FrameResults:
         n = v.numel() * v.element_size()
         out.append(packed[off:off + n].view(dt).reshape(tuple(v.shape)))
         off += n
-    return ofdm_sync.FrameResults(*out)
+    return type(res)(*out)
 
 
 class OfdmTxRx:

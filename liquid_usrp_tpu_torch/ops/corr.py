@@ -1,8 +1,9 @@
 """Streamwise correlation helpers for the frame detectors.
 
-Port of the parts of ``liquid_usrp_tpu/ops/corr.py`` the OFDM receiver
-uses: the FFT-size helper, the host-side frequency response of a reversed
-template (correlation as convolution), and the centered sliding max of the
+Port of ``liquid_usrp_tpu/ops/corr.py`` for the OFDM and flexframe
+receivers: the FFT-size helper, the host-side frequency response of a
+reversed template (correlation as convolution), the reshape-cumsum comb
+moving sum of the energy normalizers, and the centered sliding max of the
 non-max suppression.  The JAX package picks between two bit-identical
 sliding-max forms by backend; the port has one.
 """
@@ -11,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["next_pow2", "comb_rev_freq_np", "sliding_max", "topk_peaks",
-           "find_candidates"]
+__all__ = ["next_pow2", "comb_rev_freq_np", "comb_moving_sum", "sliding_max",
+           "topk_peaks", "find_candidates"]
 
 
 def next_pow2(n: int) -> int:
@@ -27,6 +28,20 @@ def comb_rev_freq_np(kern: np.ndarray, k: int, nfft: int) -> np.ndarray:
     comb = np.zeros(((len(kern) - 1) * k + 1,), np.complex64)
     comb[::k] = kern
     return np.fft.fft(comb[::-1], nfft).astype(np.complex64)
+
+
+def comb_moving_sum(x: torch.Tensor, D: int, k: int,
+                    n_out: int) -> torch.Tensor:
+    """``y[..., n] = sum_{d<D} x[..., n + k d]`` for ``n in [0, n_out)``
+    (real ``x``, last axis): a per-residue moving sum on the ``[L/k, k]``
+    reshape, as a float32 cumsum difference (JAX's formula; the cumsum's
+    rounding order is the backend's)."""
+    lead, L = x.shape[:-1], x.shape[-1]
+    M = -(-L // k) + D + 1
+    X = torch.nn.functional.pad(x, (0, M * k - L)).reshape(*lead, M, k)
+    cs = torch.nn.functional.pad(torch.cumsum(X, dim=-2), (0, 0, 1, 0))
+    S = cs[..., D:, :] - cs[..., :-D, :]    # S[m, r] = sum_d X[m + d, r]
+    return S.reshape(*lead, -1)[..., :n_out]
 
 
 def sliding_max(x: torch.Tensor, radius: int) -> torch.Tensor:

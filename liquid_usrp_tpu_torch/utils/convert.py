@@ -2,12 +2,15 @@
 
 The port keeps the JAX state and result NamedTuples' class and field names
 (``McrxState``, ``MctxState``, ``OfdmSyncState``, ``NcoState``,
-``PfbchState``, ``FrameResults``), so one conversion moves a mid-stream
-state across: :func:`from_jax_tree` takes a tree whose leaves are NumPy
-arrays (``jax.device_get`` of a JAX state, or what
+``PfbchState``, ``FrameResults``, ``FlexSyncState``, ``FlexResults``,
+``FirState``, ``ResampState``, ``MsresampState``), so one conversion moves
+a mid-stream state across: :func:`from_jax_tree` takes a tree whose leaves
+are NumPy arrays (``jax.device_get`` of a JAX state, or what
 ``liquid_usrp_tpu/utils/checkpoint.py`` saves) and builds the port's
 NamedTuples with tensors on ``device``; :func:`to_numpy_tree` is the
-inverse.  NCO phases, uint32 in JAX, are int64 tensors in the port.
+inverse.  Plain tuples and lists (``MsresampState.hb_states``) are walked
+element by element.  NCO phases, uint32 in JAX, are int64 tensors in the
+port.
 Classes are matched by name, so this module imports no JAX code.
 """
 from __future__ import annotations
@@ -15,15 +18,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..framing.flexframe_sync import FlexResults, FlexSyncState
 from ..framing.ofdm_sync import FrameResults, OfdmSyncState
 from ..models.multichannel import McrxState, MctxState
+from ..ops.fir import FirState
 from ..ops.nco import NcoState
 from ..ops.pfb import PfbchState
+from ..ops.resamp import MsresampState, ResampState
 
 __all__ = ["from_jax_tree", "to_numpy_tree"]
 
-_CLASSES = {c.__name__: c for c in (McrxState, MctxState, OfdmSyncState,
-                                    NcoState, PfbchState, FrameResults)}
+_CLASSES = {c.__name__: c for c in (
+    McrxState, MctxState, OfdmSyncState, NcoState, PfbchState, FrameResults,
+    FlexSyncState, FlexResults, FirState, ResampState, MsresampState)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -38,6 +45,8 @@ def from_jax_tree(tree, device="cpu"):
             raise TypeError(f"no port counterpart for {type(tree).__name__}"
                             f"{tree._fields}")
         return cls(*(from_jax_tree(v, device) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(from_jax_tree(v, device) for v in tree)
     a = np.asarray(tree)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
@@ -52,4 +61,6 @@ def to_numpy_tree(tree):
                           for v in tree))
     if _is_namedtuple(tree):
         return type(tree)(*(to_numpy_tree(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy_tree(v) for v in tree)
     return tree.detach().cpu().numpy()

@@ -1,9 +1,10 @@
-"""Profile of the PyTorch/CUDA port's two paths on one CUDA device.
+"""Profile of the PyTorch/CUDA port's three paths on one CUDA device.
 
 Builds the bench mixture as ``chip_smoke.py`` does (N=4, M=48, 400-byte
-payloads, ``block_size=65536``, ``n_blocks=2``) and the single-channel
-stream of ``chip_smoke.py`` (``ofdmflexframe_tx`` defaults, 40 frames), and
-measures:
+payloads, ``block_size=65536``, ``n_blocks=2``), the single-channel stream
+of ``chip_smoke.py`` (``ofdmflexframe_tx`` defaults, 40 frames) and its
+flexframe stream (``flexframe_tx`` defaults, 40 frames of 1024 bytes,
+resampled at 0.5 as ``flexframe_rx`` does), and measures:
 
 * per ported kernel, at its path's shapes (B1/B2 on the multichannel
   windows, B3/B4/B5 on the single-channel path's first 8 windows): the
@@ -18,7 +19,11 @@ measures:
   share of the wall, device kernels per step, peak device memory and the
   top device kernels;
 * per detect config of the single-channel path: the same for one 8-block
-  ``sync_blocks_batched`` dispatch with its results copied to the host.
+  ``sync_blocks_batched`` dispatch with its results copied to the host;
+* for the flexframe receiver: the same for one 8-block
+  ``flex_sync_blocks_batched`` dispatch (blocks 16-23, ``chip_smoke.py``'s
+  timed dispatch), with its stage times (front end, candidate decode,
+  results and host copy).
 
 Steps after the first feed the same chunk from the carried state; their
 results are not checked (``chip_smoke.py`` checks decoding).  Prints one
@@ -244,6 +249,69 @@ def profile_sc_config(config, params, stream, dev, wall_calls=5,
     return rec
 
 
+def profile_ff_dispatch(rx_stream, dev, stage_calls=5, wall_calls=5,
+                        prof_calls=3):
+    """One 8-block dispatch of the flexframe receiver (``chip_smoke.py``'s
+    timed dispatch) with its results copied to the host: stage times
+    (front end, candidate decode, results and host copy; CUDA events with
+    a sync between them), wall time, device busy time and share, kernels,
+    peak memory and the top device kernels."""
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    sync = cs.ff_sync()
+    st0, blocks = cs.ff_dispatch_input(sync, rx_stream, dev)
+    n_blocks, bs = blocks.shape
+    K = sync.max_frames
+
+    def one():
+        _to_host(fs.flex_sync_blocks_batched(sync, st0, blocks)[1])
+
+    for _ in range(2):
+        one()
+    stages = {"front_end": 0.0, "decode": 0.0, "results_to_host": 0.0}
+    for _ in range(stage_calls):
+        torch.cuda.synchronize()
+        e0 = _event()
+        full = torch.cat([st0.tail, blocks.reshape(-1)])
+        exts = full.unfold(0, sync.overlap + bs, bs)
+        mf, metric, c1, c2, det, locs = fs._mf_and_detect(sync, exts)
+        e1 = _event()
+        row_of = torch.arange(n_blocks, device=dev).repeat_interleave(K)
+        locs_f = locs.reshape(-1)
+        decoded = fs._gated_decode(sync, mf, metric, bool(det.any()),
+                                   row_of, locs_f,
+                                   fs._row_gather(c1, row_of, locs_f),
+                                   fs._row_gather(c2, row_of, locs_f))
+        e2 = _event()
+        t_base = st0.base + (torch.arange(n_blocks, dtype=torch.int32,
+                                          device=dev) * bs)[:, None]
+        _to_host(fs._results(det, locs, t_base, decoded, (n_blocks, K)))
+        e3 = _event()
+        torch.cuda.synchronize()
+        stages["front_end"] += e0.elapsed_time(e1) / stage_calls
+        stages["decode"] += e1.elapsed_time(e2) / stage_calls
+        stages["results_to_host"] += e2.elapsed_time(e3) / stage_calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(wall_calls):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / wall_calls
+    peak = torch.cuda.max_memory_allocated()
+    kev = _profile(one, prof_calls)
+    busy_ms = sum(_device_us(e) for e in kev) / prof_calls / 1e3
+    top = sorted(kev, key=_device_us, reverse=True)[:8]
+    rec = dict(stage_ms=stages, dispatch_wall_ms=wall_ms,
+               device_busy_ms=busy_ms, busy_share_of_wall=busy_ms / wall_ms,
+               kernels_per_dispatch=sum(e.count for e in kev) / prof_calls,
+               peak_mem_bytes=peak,
+               top=[(e.key[:90], _device_us(e) / prof_calls / 1e3,
+                     e.count / prof_calls) for e in top])
+    print("flexframe dispatch", json.dumps(rec), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_port.json"))
@@ -270,6 +338,7 @@ def main(argv=None) -> int:
                              device=dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         stream, _ = cs.sc_transmit(str(Path(tmpdir) / "sc.iq"))
+        _, ff_stream = cs.ff_transmit(str(Path(tmpdir) / "ff.iq"), dev)
     out["kernels"] = profile_kernels(s1, blocks, dev)
     out["sc_kernels"] = profile_sc_kernels(cs.sc_windows(params, stream,
                                                          dev))
@@ -277,6 +346,7 @@ def main(argv=None) -> int:
                      for level in (0, 1, 2)}
     out["sc_configs"] = {str(c): profile_sc_config(c, params, stream, dev)
                          for c in cs.SC_CONFIGS}
+    out["flexframe_dispatch"] = profile_ff_dispatch(ff_stream, dev)
     path = Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

@@ -23,6 +23,13 @@ persistent grid has blocks, and a loud burst followed by quiet noise,
 whose metric would carry a residue of a running sum).  B4/B5 vs
 :func:`kernels.autocorr_metric_prefix` (the same float32 prefix sums):
 metric <= 1e-5, ``c`` within 1e-5 of max ``|c|``.
+
+The flexframe path runs no kernel; its tests hold the card against the CPU:
+the front end (``_mf_and_detect``) with identical detections and detected
+offsets, ``mf`` within 1e-5 of max |mf| and the metric within 1e-4 where
+the window energy is at least 100x the silence floor; ``msresamp_block`` with equal counts and
+outputs within 1e-5 of max |y|; the batched sync decoding every frame, and
+candidates past a window's end reading clamped indices.
 """
 import numpy as np
 import pytest
@@ -283,3 +290,125 @@ def test_b2_plateau_keeps_the_lowest_offset(cuda):
     x[1, 2113:2113 + 2500] = 1.0             # across a tile edge
     x = torch.as_tensor(x).to(cuda)
     _check_b2(x, M, T=x.shape[-1] - 4 * M, k=80, exact_locs=True)
+
+
+# ---------------------------------------------------------------------------
+# the single-carrier flexframe path (no kernel): the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def flex_stream():
+    """Six 1024-byte QPSK flexframes (the ``flexframe_tx`` defaults) at
+    -12 dB with 150-sample zero gaps, at 2 samples a symbol, and the sync
+    of ``flexframe_rx`` (``block_size=8192``, ``max_payload=2048``,
+    ``max_frames=4``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liquid_usrp_tpu_torch.framing import flexframe as ff
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    rng = np.random.default_rng(11)
+    params = ff.make_flex_params()
+    pieces = [np.zeros(150, np.complex64)]
+    for _ in range(6):
+        h = torch.as_tensor(rng.integers(0, 256, 14, dtype=np.uint8))
+        p = torch.as_tensor(rng.integers(0, 256, 1024, dtype=np.uint8))
+        w = ff.flex_assemble(params, ff.default_props(), h, p).numpy()
+        pieces += [w * 10 ** (-12 / 20), np.zeros(150, np.complex64)]
+    sync = fs.make_flex_sync(params, block_size=8192, max_payload=2048,
+                             max_frames=4)
+    return np.concatenate(pieces), sync
+
+
+def _flex_windows(sync, stream, first_block, n=8):
+    """The extended windows of ``n`` blocks from ``first_block``."""
+    bs = sync.block_size
+    full = np.zeros(sync.overlap + (first_block + n) * bs, np.complex64)
+    body = stream[:(first_block + n) * bs]
+    full[sync.overlap:sync.overlap + len(body)] = body
+    return torch.as_tensor(full).unfold(0, sync.overlap + bs, bs)[
+        first_block:first_block + n]
+
+
+@pytest.mark.gpu
+def test_flex_front_end_cuda_matches_cpu(cuda, flex_stream):
+    """``_mf_and_detect`` on the card against the same call on CPU tensors
+    over windows that detect frames: detections and their offsets
+    identical, ``mf`` within 1e-5 of max |mf|, the metric within 1e-4
+    where the window energy is at least 100x the silence floor (the
+    float32 cumsum of the energy rounds in another order on each device,
+    which moves near-silent outputs)."""
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.ops.corr import comb_moving_sum
+    stream, sync = flex_stream
+    kernels.reset_launch_counts()
+    for first in (8, 16):
+        ext = _flex_windows(sync, stream, first)
+        got = fs._mf_and_detect(sync, ext.to(cuda))
+        torch.cuda.synchronize()
+        ref = fs._mf_and_detect(sync, ext)
+        mf, metric, _, _, det, locs = (v.cpu() for v in got)
+        # the offsets of undetected slots are unspecified (top-k ties)
+        assert torch.equal(det, ref[4]) and torch.equal(locs[det],
+                                                        ref[5][det])
+        assert bool(det.any())
+        assert float((mf - ref[0]).abs().max()) <= \
+            1e-5 * float(ref[0].abs().max())
+        pw = ref[0].abs() ** 2
+        e = comb_moving_sum(pw, 32, 2, metric.shape[-1] + 64)
+        energy = e[..., :metric.shape[-1]] + e[..., 64:]
+        loud = energy > 100 * 1e-4 * 64 * pw.mean(-1, keepdim=True)
+        assert float((metric - ref[1]).abs()[loud].max()) <= 1e-4
+    assert not any(kernels.launches.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.5, 2.0, 1.33])
+def test_msresamp_cuda_matches_cpu(cuda, flex_stream, rate):
+    from liquid_usrp_tpu_torch.ops import resamp
+    stream = torch.as_tensor(flex_stream[0][:40000])
+    ms = resamp.msresamp_create(rate)
+    outs = []
+    for dev in (cuda, "cpu"):
+        st = resamp.msresamp_state(ms, dev)
+        ys = []
+        for lo in (0, 24000):
+            st, y, _, c = resamp.msresamp_block(ms, st,
+                                                stream[lo:lo + 16000].to(dev))
+            ys.append(y[:int(c)].cpu())
+        outs.append(torch.cat(ys))
+    assert outs[0].shape == outs[1].shape
+    assert float((outs[0] - outs[1]).abs().max()) <= \
+        1e-5 * float(outs[1].abs().max())
+
+
+@pytest.mark.gpu
+def test_flex_sync_on_the_card_and_clamped_candidates(cuda, flex_stream):
+    """The batched sync decodes every frame on the card; candidates at and
+    past a window's end read clamped indices (no device assert)."""
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    stream, sync = flex_stream
+    n_ok = 0
+    st = fs.flex_sync_init(sync, cuda)
+    n_blk = -(-(len(stream) + sync.overlap) // sync.block_size) + 1
+    x = np.zeros(n_blk * sync.block_size, np.complex64)
+    x[:len(stream)] = stream
+    for lo in range(0, n_blk, 8):
+        blocks = torch.as_tensor(x[lo * 8192:(lo + 8) * 8192]).to(cuda)
+        blocks = torch.nn.functional.pad(blocks, (0, 8 * 8192 -
+                                                  blocks.shape[0]))
+        st, res = fs.flex_sync_blocks_batched(sync, st,
+                                              blocks.reshape(8, 8192))
+        n_ok += int(_to_host(res).payload_valid.sum())
+    assert n_ok == 6
+    ext = _flex_windows(sync, stream, 8).to(cuda)
+    mf, metric, c1, c2, _, _ = fs._mf_and_detect(sync, ext)
+    n = metric.shape[-1]
+    locs = torch.tensor([n - 1, n + 7000, 2 ** 30, 0], dtype=torch.int32,
+                        device=cuda)
+    row_of = torch.tensor([7, 0, 3, 7], device=cuda)
+    out = fs._decode_candidate(sync, mf, metric, row_of, locs,
+                               fs._row_gather(c1, row_of, locs),
+                               fs._row_gather(c2, row_of, locs))
+    torch.cuda.synchronize()
+    assert out[0].shape == (4, sync.header_user)

@@ -221,7 +221,7 @@ def test_channel_model_matches_jax():
     """Noise off: gain, multipath, delay, frequency offset and phase equal
     JAX's.  AWGN: the noise has the standard deviation
     ``snr_to_noise_std`` gives, and one seed gives one stream.  A
-    sample-rate offset raises."""
+    sample-rate offset resamples as JAX's does."""
     rng = np.random.default_rng(5)
     x = (rng.normal(size=3000) + 1j * rng.normal(size=3000)
          ).astype(np.complex64)
@@ -245,8 +245,11 @@ def test_channel_model_matches_jax():
     a = tchan.awgn(torch.Generator().manual_seed(7), clean, 10.0)
     b = tchan.awgn(torch.Generator().manual_seed(7), clean, 10.0)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tchan.channel_apply(tchan.Channel(sro_ppm=10.0), gen, clean)
+    got = tchan.channel_apply(tchan.Channel(sro_ppm=10.0), gen, clean)
+    want = jchan.channel_apply(jchan.Channel(sro_ppm=10.0),
+                               jax.random.PRNGKey(0), jnp.asarray(x))
+    assert got.shape == (3002,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_ingest_converters_and_prefetcher(tmp_path):
