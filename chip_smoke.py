@@ -1,11 +1,13 @@
 """On-card smoke run of the PyTorch/CUDA port (``liquid_usrp_tpu_torch``).
 
-Drives the port's three paths once on one CUDA device and checks them: the
+Drives the port's four paths once on one CUDA device and checks them: the
 multichannel OFDM receiver (NCO mix-down -> 2N-bin PFB analyzer -> batched
 N-channel detect + decode) at the full bench configuration, the
 single-channel OFDM transceiver (``OfdmTxRx``, the ``ofdmflexframe_tx/rx``
-apps) and the single-carrier flexframe path (``flexframe_tx/rx``,
-``packet_tx/rx``: FIR, resamplers, flexframe sync) at the app defaults:
+apps), the single-carrier flexframe path (``flexframe_tx/rx``,
+``packet_tx/rx``: FIR, resamplers, flexframe sync) and the GMSK path
+(``gmskframe_tx/rx``) at the app defaults, and the convolutional and
+Reed-Solomon FEC layer (``--conv``):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``liquid_usrp_tpu_torch/csrc``;
@@ -58,7 +60,7 @@ apps) and the single-carrier flexframe path (``flexframe_tx/rx``,
 10. decode-verified samples/s of the single-channel path per detect
    config, and the time of one 8-block dispatch, over a smoke window;
 11. B4 and B5 lie on no path: their launch counts, summed over the path
-   runs of 4, 7, 8, 9, 12 and 14, must be 0;
+   runs of 4, 7, 8, 9, 12, 14, 16 and 18, must be 0;
 12. the single-carrier flexframe path at the app defaults:
    ``flexframe_tx.main`` writes 40 frames (1024-byte QPSK payloads, FEC
    none + Hamming(12,8), CRC32, -12 dB, ``-r 2.0``, seed 42);
@@ -87,7 +89,37 @@ apps) and the single-carrier flexframe path (``flexframe_tx/rx``,
    decode-verified input samples/s of the receiver over the whole
    resampled stream (every run checked), ms per 8-block dispatch, and ms
    of the RX ``msresamp`` over the stream.  B1-B5 launch on neither the
-   flexframe nor the packet path: their counts there must be 0.
+   flexframe nor the packet path: their counts there must be 0;
+16. the GMSK path at the app defaults: ``gmskframe_tx.main`` writes 40
+   frames (200-byte payloads, CRC16, FEC none + Hamming(7,4), -12 dB,
+   300-sample gaps, seed 42); ``gmskframe_rx.main`` (``-p 1024``,
+   ``block_size=8192``, ``max_frames=4``, 8-block dispatches) must report
+   40/40 valid, and the sync driven directly must return the 40
+   regenerated headers and payloads byte for byte in stream order; then
+   the stream through ``--snr 20 --cfo 0.01``: 40/40 by the app and
+   directly, every offset within ``GM_CFO_ATOL`` of 0.01;
+17. the GMSK front end on the card against the port on the CPU, on every
+   8-block dispatch of that stream: the same detected offsets in every
+   window (their top-k slot order may differ: the stream's frames peak
+   within 4e-5 of each other), ``z`` within 1e-5 of max |z|, the metric within 1e-4 where
+   the template span's energy is at least 100x its silence floor (the
+   energy's float32 cumsum rounds in another order on each device; the
+   largest difference anywhere and the gate flips are printed);
+18. the conv/RS layer on the card: ``conv_decode`` (v27, v29, v27p34) and
+   ``rs_decode`` equal the port on the CPU bit for bit on the same noisy
+   words; ``gmskframe_tx -N 40 -c v27 -k none`` -> ``gmskframe_rx
+   --conv``: 40/40, and the sync directly byte for byte;
+   ``ofdmflexframe_tx -k rs8`` (10 frames of 442 bytes: whole RS blocks,
+   the sizes the reference's static-size RS decode aligns with) ->
+   ``ofdmflexframe_rx --conv -p 512`` and ``flexframe_tx -c v27 -k none``
+   (10 frames of 100 bytes) -> ``flexframe_rx --conv -p 256``: every frame
+   valid; the Viterbi's ms per dispatch (the ``fec0`` stage of the timed
+   GMSK ``--conv`` dispatch, v27 over its header-valid rows);
+19. GMSK times (CUDA events, after a warm-up): decode-verified samples/s
+   over the whole stream and ms per 8-block dispatch, without and with
+   ``--conv``.  B1-B5 launch on none of the runs of 16-18 but the OFDM
+   app's (whose detector is B1 at its default level, as on every OFDM
+   run): their counts there must be 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -170,6 +202,15 @@ FF_TIMED_RUNS = 2
 FF_DISPATCH = 2                # the timed dispatch: blocks 16..23
 # the multichannel receiver below the fused kernel's M >= 32
 M16, CP16, TAPER16 = 16, 4, 2
+# the GMSK path at the gmskframe_tx/rx defaults
+GM_FRAMES, GM_PAYLOAD, GM_SEED = 40, 200, 42
+GM_BLOCK, GM_BATCH, GM_MAX_PAYLOAD, GM_MAX_FRAMES = 8192, 8, 1024, 4
+GM_CFO = 0.01                  # rad/sample (the RX takes the file rate)
+GM_CFO_ATOL = 1e-3             # a CPU dry run at 8 frames: within 2e-4
+GM_TIMED_RUNS = 2
+GM_DISPATCH = 1                # the timed dispatch: blocks 8..15
+# the --conv loopbacks of the OFDM and flexframe apps
+CV_FRAMES = 10
 
 
 def card() -> str:
@@ -870,18 +911,23 @@ def ff_sync(frame64=False):
                              max_frames=FF_MAX_FRAMES)
 
 
-def ff_decode(sync, stream, dev):
+def ff_decode(sync, stream, dev, gmsk=False):
     """The resampled ``stream`` through ``iter_sync_results`` as the RX
     apps drive it (8-block batched dispatches, single-block steps for the
-    rest): every detected frame, in stream order, as a dict."""
+    rest): every detected frame, in stream order, as a dict.  With
+    ``gmsk`` the GMSK synchronizer's entry points drive ``sync``."""
     from liquid_usrp_tpu_torch.apps.common import iter_sync_results
     from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    step, init, batched = (
+        (gf.make_gmsk_sync_step, gf.gmsk_sync_init,
+         gf.gmsk_sync_blocks_batched) if gmsk else
+        (fs.make_flex_sync_step, fs.flex_sync_init,
+         fs.flex_sync_blocks_batched))
     frames = []
     for r in iter_sync_results(
-            fs.make_flex_sync_step(sync), fs.flex_sync_init(sync, dev),
-            stream, sync.block_size, sync.overlap,
-            batched_fn=lambda st, b: fs.flex_sync_blocks_batched(sync, st,
-                                                                 b),
+            step(sync), init(sync, dev), stream, sync.block_size,
+            sync.overlap, batched_fn=lambda st, b: batched(sync, st, b),
             batch_blocks=FF_BATCH):
         for i in np.nonzero(r.detected)[0]:
             frames.append(dict(
@@ -891,11 +937,12 @@ def ff_decode(sync, stream, dev):
     return sorted(frames, key=lambda f: f["t"])
 
 
-def check_ff_frames(what, frames, sent, cfo=None, exact_count=True):
+def check_ff_frames(what, frames, sent, cfo=None, exact_count=True,
+                    atol=FF_CFO_ATOL):
     """Raise unless the payload-valid ``frames`` are the ``sent`` (header,
     payload) pairs byte for byte in stream order (and, with
     ``exact_count``, nothing else was detected), each offset within
-    ``FF_CFO_ATOL`` of ``cfo``.  Returns the largest offset error."""
+    ``atol`` of ``cfo``.  Returns the largest offset error."""
     ok = [f for f in frames if f["valid"]]
     if len(ok) != len(sent) or (exact_count and len(frames) != len(sent)):
         raise AssertionError(f"{what}: {len(ok)} valid of {len(frames)} "
@@ -908,7 +955,7 @@ def check_ff_frames(what, frames, sent, cfo=None, exact_count=True):
     if cfo is None:
         return 0.0
     err = max(abs(f["cfo"] - cfo) for f in ok)
-    if not err <= FF_CFO_ATOL:
+    if not err <= atol:
         raise AssertionError(f"{what}: CFO estimate off by {err}")
     return err
 
@@ -1144,6 +1191,329 @@ def run_packet(dev, tmpdir):
     return launches
 
 
+def gm_sync(conv=False):
+    """The gmskframe_rx synchronizer (with ``--conv``: ``conv``)."""
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    return gf.make_gmsk_sync(gf.make_gmsk_params(), block_size=GM_BLOCK,
+                             max_payload=GM_MAX_PAYLOAD,
+                             max_frames=GM_MAX_FRAMES, enable_conv=conv)
+
+
+def gm_transmit(path, *extra):
+    """``gmskframe_tx.main`` at its defaults (``GM_FRAMES`` frames of
+    ``GM_PAYLOAD`` bytes, seed ``GM_SEED``) and ``extra`` flags into
+    ``path``: the stream (``gmskframe_rx`` decodes it at the file rate)."""
+    from liquid_usrp_tpu_torch.apps import gmskframe_tx
+    from liquid_usrp_tpu_torch.io.streams import read_iq
+    run_app(gmskframe_tx.main, ["-o", path, "-N", str(GM_FRAMES), "-P",
+                                str(GM_PAYLOAD), "-s", str(GM_SEED),
+                                *extra])
+    return read_iq(path)
+
+
+def gm_front_end_vs_cpu(sync, stream, dev):
+    """The GMSK front end on the card against the port on the CPU, over
+    every 8-block dispatch of ``stream`` (phase 17)."""
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    from liquid_usrp_tpu_torch.ops.corr import comb_moving_sum
+    bs, k = sync.block_size, sync.params.k
+    n_t = gf.PRE_BITS + gf.SYNC_BITS
+    seg, n_seg = gf.DETECT_SEG, n_t // gf.DETECT_SEG
+    shift = seg * k
+    n_blocks = -(-len(stream) // bs) + -(-sync.overlap // bs) + 1
+    z_err = m_loud = m_all = 0.0
+    flips = n_det = n_dispatches = 0
+    for first in range(0, n_blocks - GM_BATCH + 1, GM_BATCH):
+        ext = ff_windows(sync, stream, first, GM_BATCH)
+        got = [v.cpu() for v in gf._front_end(sync, ext.to(dev))]
+        z, metric, det, locs = gf._front_end(sync, ext)
+        # the same detected offsets in each window; their slot order may
+        # differ (the clean stream's frames peak within 4e-5 of each other,
+        # which the rounding of the energy's cumsum can reorder), and the
+        # offsets of undetected slots are unspecified (top-k ties)
+        same = torch.equal(got[2].sum(-1), det.sum(-1)) and all(
+            torch.equal(got[3][r][got[2][r]].sort().values,
+                        locs[r][det[r]].sort().values)
+            for r in range(det.shape[0]))
+        if not same:
+            raise AssertionError(f"GMSK front end, blocks {first}..: "
+                                 f"candidates differ from the CPU's")
+        z_err = max(z_err, float((got[0] - z).abs().max() /
+                                 z.abs().max().clamp(min=1e-30)))
+        # the template span's energy at symbol stride, against its silence
+        # floor (1e-3 of the window's mean |z|^2 over the span)
+        n = metric.shape[-1]
+        pz = z.abs() ** 2
+        e = comb_moving_sum(pz, seg, k, n + (n_seg - 1) * shift)
+        energy = sum(e[..., s * shift:s * shift + n] for s in range(n_seg))
+        floor = 1e-3 * n_t * pz.mean(-1, keepdim=True)
+        loud = energy >= FF_METRIC_LOUD * floor
+        diff = (got[1] - metric).abs()
+        m_all = max(m_all, float(diff.max()))
+        if bool(loud.any()):
+            m_loud = max(m_loud, float(diff[loud].max()))
+        flips += int(((got[1] == 0) != (metric == 0)).sum())
+        n_det += int(det.sum())
+        n_dispatches += 1
+    print(f"GMSK front end on the card vs the CPU over {n_dispatches} "
+          f"dispatches ({n_det} detections, the same offsets): "
+          f"z max diff {z_err:.3e} of max |z| (limit 1e-5); metric max abs "
+          f"diff {m_loud:.3e} where the span energy >= "
+          f"{FF_METRIC_LOUD:g}x its floor (limit 1e-4), {m_all:.3e} "
+          f"anywhere with {flips} gate flips (not held)", flush=True)
+    if not (z_err <= 1e-5 and m_loud <= 1e-4 and n_det > 0):
+        raise AssertionError("GMSK front end: the card disagrees with the "
+                             "CPU")
+
+
+def gm_dispatch_input(sync, stream, dev):
+    """The GMSK sync state carried into dispatch ``GM_DISPATCH`` of
+    ``stream`` and that dispatch's ``[GM_BATCH, block]`` blocks, on
+    ``dev``."""
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    first = GM_DISPATCH * GM_BATCH
+    exts = ff_windows(sync, stream, first, GM_BATCH)
+    st = gf.GmskSyncState(
+        tail=exts[0, :sync.overlap].to(dev),
+        base=torch.tensor(first * sync.block_size - sync.overlap,
+                          dtype=torch.int32, device=dev))
+    return st, exts[:, sync.overlap:].contiguous().to(dev)
+
+
+def gm_timing(sync, stream, sent, dev, what, label):
+    """Decode-verified samples/s over the whole stream (best of
+    ``GM_TIMED_RUNS``, each checked) and ms per 8-block dispatch (blocks
+    ``GM_DISPATCH * GM_BATCH``.., from the state the sync carries into
+    them; each giving the same count).  Returns (MS/s, dispatch ms)."""
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    runs = []
+    for _ in range(GM_TIMED_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        frames = ff_decode(sync, stream, dev, gmsk=True)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+        check_ff_frames(f"{what}, timed run", frames, sent,
+                        exact_count=False)
+    st, blocks = gm_dispatch_input(sync, stream, dev)
+    counts = []
+
+    def dispatch():
+        _, res = gf.gmsk_sync_blocks_batched(sync, st, blocks)
+        counts.append(int(_to_host(res).payload_valid.sum()))
+    disp_ms = cuda_ms(dispatch, 3)
+    if len(set(counts)) != 1 or counts[0] <= 0:
+        raise AssertionError(f"{what} timed dispatches decoded {counts}")
+    sps = len(stream) / (min(runs) * 1e-3)
+    print(f"{what} timing: {sps / 1e6:.4f} MS/s decode-verified (best of "
+          f"{GM_TIMED_RUNS} whole-stream runs, {min(runs):.1f} ms for "
+          f"{len(stream)} samples, {len(sent)}/{len(sent)} each); "
+          f"{disp_ms:.3f} ms per {GM_BATCH}-block dispatch (blocks "
+          f"{GM_DISPATCH * GM_BATCH}.., {counts[0]} frames) on {label}",
+          flush=True)
+    return sps, disp_ms
+
+
+def run_gmsk(dev, tmpdir, label):
+    """The GMSK path at the app defaults (phases 16, 17 and 19 without
+    ``--conv``).  Returns the kernel launch counts of its runs."""
+    from liquid_usrp_tpu_torch.apps import gmskframe_rx
+    from liquid_usrp_tpu_torch.apps.common import (apply_channel,
+                                                   occupied_power)
+    from liquid_usrp_tpu_torch.ops import kernels
+    path = str(Path(tmpdir) / "gmsk.iq")
+    sent = tx_draws(GM_FRAMES, GM_SEED, 8, GM_PAYLOAD)
+    sync = gm_sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stream = gm_transmit(path)
+    t_tx = time.perf_counter() - t0
+    text = run_app(gmskframe_rx.main, ["-i", path, "-q"])
+    if app_count(text, "valid packets") != GM_FRAMES:
+        raise AssertionError(f"gmskframe_rx: {text[-400:]}")
+    # the reference's detector also fires on 2 spots of this clean stream
+    # (header-invalid rows, the same in JAX): held are the 40 frames sent
+    frames = ff_decode(sync, stream, dev, gmsk=True)
+    check_ff_frames("GMSK sync", frames, sent, exact_count=False)
+    n_det = len(frames)
+    flags = {"snr": "20", "cfo": str(GM_CFO)}
+    text = run_app(gmskframe_rx.main, ["-i", path, "-q", "--snr", "20",
+                                       "--cfo", str(GM_CFO)])
+    if app_count(text, "valid packets") != GM_FRAMES:
+        raise AssertionError(f"gmskframe_rx --snr 20 --cfo {GM_CFO}: "
+                             f"{text[-400:]}")
+    impaired = apply_channel(stream, flags,
+                             signal_power=occupied_power(stream))
+    cfo_err = check_ff_frames(
+        f"GMSK sync, --snr 20 --cfo {GM_CFO}",
+        ff_decode(sync, impaired, dev, gmsk=True), sent, GM_CFO,
+        exact_count=False, atol=GM_CFO_ATOL)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    print(f"GMSK: gmskframe_tx wrote {GM_FRAMES} frames of {GM_PAYLOAD} "
+          f"bytes ({len(stream)} samples, {t_tx:.1f} s); gmskframe_rx and "
+          f"the sync decode {GM_FRAMES}/{GM_FRAMES}, headers and payloads "
+          f"byte for byte in stream order ({n_det} detections); with --snr "
+          f"20 --cfo {GM_CFO} "
+          f"{GM_FRAMES}/{GM_FRAMES} by the app and the sync, offsets within "
+          f"{cfo_err:.2e} of {GM_CFO} (limit {GM_CFO_ATOL}); kernel "
+          f"launches {launches}", flush=True)
+    gm_front_end_vs_cpu(sync, stream, dev)
+    gm_timing(sync, stream, sent, dev, "GMSK", label)
+    return launches
+
+
+def conv_vs_cpu(dev):
+    """``conv_decode`` (v27, v29, v27p34) and ``rs_decode`` on the card
+    against the port on the CPU, on the same noisy words (phase 18)."""
+    from liquid_usrp_tpu_torch.ops import fec
+    rng = np.random.default_rng(0xC0DE)
+    cpu = torch.device("cpu")
+    lines = []
+    for s in (fec.FEC_CONV_V27, fec.FEC_CONV_V29, fec.FEC_CONV_V27P34):
+        data = rng.integers(0, 256, (4, 200), dtype=np.uint8)
+        enc = fec.fec_encode(s, torch.as_tensor(data)).numpy()
+        bits = np.unpackbits(enc, axis=-1)
+        noisy = torch.as_tensor(np.packbits(
+            bits ^ (rng.random(bits.shape) < 0.03), axis=-1))
+        got = fec.fec_decode(s, noisy.to(dev), 200).cpu()
+        want = fec.fec_decode(s, noisy.to(cpu), 200)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{fec.fec_name(s)}: the card's Viterbi "
+                                 f"differs from the CPU's")
+        n_ok = int((want.numpy() == data).all(-1).sum())
+        lines.append(f"{fec.fec_name(s)} {n_ok}/4 rows corrected")
+    data = rng.integers(0, 256, (4, 300), dtype=np.uint8)
+    enc = fec.fec_encode(fec.FEC_RS8, torch.as_tensor(data)).numpy()
+    for row, n_err in enumerate((0, 8, 16, 24)):
+        for p in rng.choice(255, size=n_err, replace=False):
+            enc[row, p] ^= int(rng.integers(1, 256))
+    bad = torch.as_tensor(enc)
+    got = fec.fec_decode(fec.FEC_RS8, bad.to(dev), 300).cpu()
+    want = fec.fec_decode(fec.FEC_RS8, bad, 300)
+    if not torch.equal(got, want):
+        raise AssertionError("rs8: the card's decode differs from the CPU's")
+    ok = (want.numpy() == data).all(-1)
+    if not ok[:3].all():
+        raise AssertionError(f"rs8 failed to correct 16 errors: {ok}")
+    print(f"conv/RS on the card vs the CPU: bit for bit ({'; '.join(lines)}"
+          f"; rs8 rows with 0/8/16/24 byte errors corrected {ok.tolist()})",
+          flush=True)
+
+
+def viterbi_ms(sync, stream, dev, label):
+    """The Viterbi's ms per dispatch, inside the timed ``--conv`` dispatch
+    (blocks ``GM_DISPATCH * GM_BATCH``..): the host-clock time of its
+    second FEC stage (``_fec_batch`` in ``fec0``, v27 over the dispatch's
+    header-valid v27 rows; the first stage, ``fec1``, is ``none``), with
+    a sync before and after it, mean over ``GM_TIMED_RUNS`` dispatches
+    after a warm-up one.  The stage is timed by wrapping
+    ``payload._fec_batch`` for these dispatches only."""
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    from liquid_usrp_tpu_torch.framing import payload as payload_codec
+    from liquid_usrp_tpu_torch.ops import fec
+    st, blocks = gm_dispatch_input(sync, stream, dev)
+    v27 = list(sync.fecs).index(fec.FEC_CONV_V27)
+    fec_batch = payload_codec._fec_batch
+    stages = []
+
+    def timed(scheme_ids, bufs, out_bytes, fecs, rows=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fec_batch(scheme_ids, bufs, out_bytes, fecs, rows=rows)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        stages.append((ms, int(((scheme_ids == v27) & rows).sum()),
+                       out_bytes))
+        return out
+
+    payload_codec._fec_batch = timed
+    try:
+        for _ in range(GM_TIMED_RUNS + 1):
+            gf.gmsk_sync_blocks_batched(sync, st, blocks)
+    finally:
+        payload_codec._fec_batch = fec_batch
+    # two stages a dispatch, fec1 then fec0; the first dispatch warms up
+    f0 = stages[3::2]
+    rows = {r for _, r, _ in f0}
+    if len(f0) != GM_TIMED_RUNS or len(rows) != 1 or min(rows) <= 0:
+        raise AssertionError(f"--conv dispatch FEC stages: {stages}")
+    ms = sum(t for t, _, _ in f0) / len(f0)
+    n_rows = rows.pop()
+    steps = payload_codec._fit_bytes(fec.FEC_CONV_V27, f0[0][2],
+                                     sync.enc_max) * 8 + 6
+    print(f"Viterbi in the timed --conv dispatch (blocks "
+          f"{GM_DISPATCH * GM_BATCH}.., fec0 stage: v27 over its {n_rows} "
+          f"header-valid rows x {steps} trellis steps): "
+          f"{' / '.join(f'{t:.2f}' for t, _, _ in f0)} ms, mean {ms:.2f} ms "
+          f"per dispatch, {ms * 1e3 / steps:.2f} us per step on {label}",
+          flush=True)
+    return ms
+
+
+def conv_loopback(name, tx, rx, tx_argv, rx_argv, tmpdir):
+    """``tx`` writes ``CV_FRAMES`` frames with ``tx_argv`` and ``rx --conv
+    rx_argv`` must detect and decode every one."""
+    p = str(Path(tmpdir) / f"{name.split()[0]}_conv.iq")
+    run_app(tx.main, ["-o", p, "-N", str(CV_FRAMES), *tx_argv])
+    t0 = time.perf_counter()
+    text = run_app(rx.main, ["-i", p, "-q", "--conv", *rx_argv])
+    if app_count(text, "valid packets") != CV_FRAMES or \
+            app_count(text, "frames detected") != CV_FRAMES:
+        raise AssertionError(f"{name} --conv: {text[-400:]}")
+    print(f"{name} --conv: {CV_FRAMES}/{CV_FRAMES} valid "
+          f"({' '.join(tx_argv)}; rx {' '.join(rx_argv)}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def run_conv(dev, tmpdir, label):
+    """The conv/RS layer off the OFDM path (phases 18 and 19 with
+    ``--conv``).  Returns the kernel launch counts of its runs."""
+    from liquid_usrp_tpu_torch.apps import (flexframe_rx, flexframe_tx,
+                                            gmskframe_rx)
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    conv_vs_cpu(dev)
+    sync = gm_sync(conv=True)
+    path = str(Path(tmpdir) / "gmsk_v27.iq")
+    sent = tx_draws(GM_FRAMES, GM_SEED, 8, GM_PAYLOAD)
+    stream = gm_transmit(path, "-c", "v27", "-k", "none")
+    text = run_app(gmskframe_rx.main, ["-i", path, "-q", "--conv"])
+    if app_count(text, "valid packets") != GM_FRAMES:
+        raise AssertionError(f"gmskframe_rx --conv: {text[-400:]}")
+    check_ff_frames("GMSK sync --conv", ff_decode(sync, stream, dev,
+                                                  gmsk=True), sent,
+                    exact_count=False)
+    print(f"GMSK --conv: gmskframe_tx -c v27 -k none wrote {GM_FRAMES} "
+          f"frames ({len(stream)} samples); gmskframe_rx --conv and the "
+          f"sync decode {GM_FRAMES}/{GM_FRAMES} byte for byte", flush=True)
+    gm_timing(sync, stream, sent, dev, "GMSK --conv", label)
+    viterbi_ms(sync, stream, dev, label)
+    conv_loopback("flexframe v27", flexframe_tx, flexframe_rx,
+                  ["-P", "100", "-c", "v27", "-k", "none"], ["-p", "256"],
+                  tmpdir)
+    torch.cuda.synchronize()
+    return dict(kernels.launches)
+
+
+def run_ofdm_conv(tmpdir):
+    """The OFDM app's ``--conv`` loopback with RS8 payloads (phase 18).
+    Its detector is the OFDM path's (B1 at the app's default level), so
+    its launch counts are returned apart."""
+    from liquid_usrp_tpu_torch.apps import ofdmflexframe_rx, ofdmflexframe_tx
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    conv_loopback("ofdmflexframe rs8", ofdmflexframe_tx, ofdmflexframe_rx,
+                  ["-P", "442", "-k", "rs8"], ["-p", "512"], tmpdir)
+    torch.cuda.synchronize()
+    if kernels.launches["detect_metric_xcorr_onepass"] <= 0:
+        raise AssertionError("ofdmflexframe_rx --conv did not launch B1")
+    return dict(kernels.launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1239,6 +1609,20 @@ def main() -> int:
     print(f"flexframe and packet paths: B1-B5 launched 0 times "
           f"({', '.join(KERNELS)})", flush=True)
     path_runs += ff_runs
+    with tempfile.TemporaryDirectory() as tmpdir:
+        gm_runs = [run_gmsk(dev, tmpdir, label),
+                   run_conv(dev, tmpdir, label)]
+        ofdm_conv = run_ofdm_conv(tmpdir)
+    # the GMSK path and the conv/RS layer run no kernel
+    for name in KERNELS:
+        n = sum(run[name] for run in gm_runs)
+        if n != 0:
+            raise AssertionError(f"{name} was launched {n} times by the "
+                                 f"GMSK and conv runs")
+    print(f"GMSK and conv runs: B1-B5 launched 0 times "
+          f"({', '.join(KERNELS)}); the OFDM --conv run, on the OFDM "
+          f"path's detector: {ofdm_conv}", flush=True)
+    path_runs += gm_runs + [ofdm_conv]
     # B3 is on the single-channel path (legacy detector, level 1); B4 and
     # B5 are on no path (the JAX package calls them only from tests): their
     # counts over every path run above must be 0

@@ -7,9 +7,9 @@ defaults): the stream goes through the ``--snr/--cfo/--delay`` impairments
 (``block_size=8192``, ``max_frames=4``, ``-p`` payload budget, default
 2048) in 8-block batched dispatches; a line per frame, then the aggregate
 stats.  Runs on the first CUDA device (``LIQUID_USRP_TORCH_DEVICE=cpu``
-asks for the CPU).  ``--conv`` and ``--soft`` need the convolutional/RS
-FEC and the soft decoder, which are not ported yet: they are rejected with
-an error.
+asks for the CPU).  ``--conv`` adds the convolutional and Reed-Solomon
+payload FEC branches; ``--soft`` needs the soft decoder, which is not
+ported yet: it is rejected with an error.
 
     python -m liquid_usrp_tpu_torch.apps.flexframe_rx -i tx.iq
 """
@@ -36,7 +36,8 @@ USAGE = """flexframe_rx -i in.iq [options]
   q : quiet
   e : decode budget (expansion), default 3 (TX prints the needed value)
   --snr/--cfo/--delay/--seed : virtual channel impairments
-  (--conv and --soft are not supported by the PyTorch port yet)
+  --conv : enable convolutional/RS payload FEC decode branches
+  (--soft is not supported by the PyTorch port yet)
 """
 
 
@@ -48,8 +49,7 @@ def main(argv=None) -> int:
     if "h" in flags:
         print(USAGE)
         return 0
-    reject_unported(flags, {"conv": "convolutional/RS payload FEC",
-                            "soft": "soft-decision decoding"})
+    reject_unported(flags, {"soft": "soft-decision decoding"})
     path = flags.get("i")
     if not path:
         print(USAGE)
@@ -68,6 +68,7 @@ def main(argv=None) -> int:
     sync = ffs.make_flex_sync(params, block_size=8192,
                               max_payload=int(flags.get("p", 2048)),
                               max_frames=4,
+                              enable_conv="conv" in flags,
                               expansion=int(flags.get("e", EXPANSION)))
     stats = RxStats()
     t0 = time.time()

@@ -5,8 +5,8 @@ defaults): frames at 2 samples/symbol, each with a 14-byte user header (a
 2-byte packet id and 12 random bytes), then resampled by the multi-stage
 arbitrary resampler at ``-r`` (default 2.0, so 4 samples/symbol on file).
 Runs on the first CUDA device (``LIQUID_USRP_TORCH_DEVICE=cpu`` asks for
-the CPU).  Only the block FEC codes are ported; a convolutional or
-Reed-Solomon scheme name is an error.
+the CPU).  A convolutional or Reed-Solomon scheme needs ``--conv`` on the
+receiver (the TX prints the note).
 
     python -m liquid_usrp_tpu_torch.apps.flexframe_tx -o tx.iq -N 10
 """

@@ -3,9 +3,9 @@
 Port of ``liquid_usrp_tpu/apps/ofdmflexframe_rx.py`` (same flags): a line
 per frame (RSSI, EVM, CFO, header and payload status), then the aggregate
 stats.  Runs on the first CUDA device (``LIQUID_USRP_TORCH_DEVICE=cpu``
-asks for the CPU).  ``--conv`` and
-``--soft`` need the convolutional/RS FEC and the soft decoder, which are
-not ported yet: they are rejected with an error.
+asks for the CPU).  ``--conv`` adds the convolutional and Reed-Solomon
+payload FEC branches; ``--soft`` needs the soft decoder, which is not
+ported yet: it is rejected with an error.
 
     python -m liquid_usrp_tpu_torch.apps.ofdmflexframe_rx -i tx.iq
 """
@@ -43,7 +43,8 @@ USAGE = """ofdmflexframe_rx -i in.iq [options]
           codes (full-scale ADC convention, keep |I|,|Q| <= 1)
   e     : decode budget (encoded/decoded expansion), default 3; the
           transmitter prints the value to use for heavy FEC pairs
-  (--conv and --soft are not supported by the PyTorch port yet)
+  --conv : enable convolutional/RS payload FEC decode branches
+  (--soft is not supported by the PyTorch port yet)
 """
 
 
@@ -69,8 +70,7 @@ def main(argv=None) -> int:
     if "h" in flags:
         print(USAGE)
         return 0
-    reject_unported(flags, {"conv": "convolutional/RS payload FEC",
-                            "soft": "soft-decision decoding"})
+    reject_unported(flags, {"soft": "soft-decision decoding"})
     path = flags.get("i")
     if not path:
         print(USAGE)
@@ -99,6 +99,7 @@ def main(argv=None) -> int:
 
     txrx = OfdmTxRx(M=M, cp_len=cp, taper_len=taper,
                     max_payload=max_payload, callback=callback,
+                    enable_conv="conv" in flags,
                     rx_ingest=flags.get(
                         "ingest", "bf16" if "bf16" in flags else "c64"),
                     expansion=int(flags.get("e", EXPANSION)))

@@ -5,8 +5,8 @@ defaults): M=48 subcarriers, cp=6, taper=4, 1200-byte payloads, QPSK, FEC
 none + Golay(24,12), CRC32, -12 dB soft gain; each header is a 2-byte packet
 id and 6 random bytes.  Runs on the first CUDA device
 (``LIQUID_USRP_TORCH_DEVICE=cpu`` asks for the CPU).
-Only the block FEC codes are ported; a convolutional or Reed-Solomon
-scheme name is an error.
+A convolutional or Reed-Solomon scheme needs ``--conv`` on the receiver
+(the TX prints the note).
 
     python -m liquid_usrp_tpu_torch.apps.ofdmflexframe_tx -o tx.iq -N 10
 """

@@ -96,9 +96,8 @@ def make_flex_sync(params: FlexParams, block_size: int = 16384,
                    header_user: int = FLEX_HEADER_USER) -> FlexSync:
     if expansion < 1:
         raise ValueError(f"expansion must be >= 1 (got {expansion})")
-    if enable_conv or soft:
-        raise NotImplementedError(
-            "convolutional/RS payload FEC and soft decoding are not ported")
+    if soft:
+        raise NotImplementedError("soft-decision decoding is not ported")
     dec_max = max_payload + 4
     enc_max = expansion * dec_max   # see payload.check_budget
     # +1 point: DPSK payloads lead with a phase-reference point
@@ -114,7 +113,8 @@ def make_flex_sync(params: FlexParams, block_size: int = 16384,
                     threshold=threshold,
                     overlap=max_frame + 32 * params.k + 32,
                     max_slots=max_slots, dec_max=dec_max, enc_max=enc_max,
-                    fecs=payload_codec.PAYLOAD_FECS, soft=False,
+                    fecs=(payload_codec.PAYLOAD_FECS_FULL if enable_conv
+                          else payload_codec.PAYLOAD_FECS), soft=False,
                     header_user=header_user)
 
 

@@ -28,7 +28,8 @@ from .payload import (HEADER_BPS as _HEADER_BPS,
 
 __all__ = [
     "OfdmParams", "FrameProps", "make_ofdm_params", "default_props",
-    "assemble_frame", "frame_length", "payload_symbol_count",
+    "assemble_frame", "assemble_frames", "frame_length",
+    "payload_symbol_count",
     "header_symbol_count", "HEADER_USER_BYTES", "NUM_S0",
     "SCTYPE_NULL", "SCTYPE_PILOT", "SCTYPE_DATA",
 ]
@@ -320,3 +321,16 @@ def assemble_frame(params: OfdmParams, props: FrameProps,
     s0 = on(params.s0_time, dev)
     preamble = torch.cat([s0.repeat(NUM_S0), on(params.s1_time, dev)])
     return torch.cat([preamble, body])
+
+
+def assemble_frames(params: OfdmParams, props: FrameProps,
+                    headers: torch.Tensor, payloads: torch.Tensor,
+                    expansion: int = payload_codec.EXPANSION,
+                    rx_max_payload: int = None) -> torch.Tensor:
+    """Batched assembly: ``[B, 8]`` headers + ``[B, P]`` payloads ->
+    ``[B, frame_length]`` (one :func:`assemble_frame` per row, where JAX
+    ``vmap``s; the frames of one props share a length)."""
+    return torch.stack([assemble_frame(params, props, h, p,
+                                       expansion=expansion,
+                                       rx_max_payload=rx_max_payload)
+                        for h, p in zip(headers, payloads)])

@@ -39,7 +39,8 @@ from ..utils.consts import on
 from . import payload as payload_codec
 from .ofdm import NUM_S0, OfdmParams, _pilot_values, header_symbol_count
 from .payload import (EXPANSION as _EXPANSION, HEADER_BPS as _HEADER_BPS,
-                      HEADER_MOD as _HEADER_MOD, HEADER_SYMS, PAYLOAD_FECS)
+                      HEADER_MOD as _HEADER_MOD, HEADER_SYMS, PAYLOAD_FECS,
+                      PAYLOAD_FECS_FULL)
 
 __all__ = ["OfdmSync", "OfdmSyncState", "FrameResults", "SyncTables",
            "make_sync", "sync_init", "sync_tables", "sync_block",
@@ -99,9 +100,8 @@ def make_sync(params: OfdmParams, block_size: int = 16384,
               expansion: int = _EXPANSION) -> OfdmSync:
     if expansion < 1:
         raise ValueError(f"expansion must be >= 1 (got {expansion})")
-    if enable_conv or soft:
-        raise NotImplementedError(
-            "convolutional/RS payload FEC and soft decoding are not ported")
+    if soft:
+        raise NotImplementedError("soft-decision decoding is not ported")
     M, cp = params.M, params.cp_len
     n_data = len(params.data_idx)
     dec_max = max_payload + 4
@@ -116,7 +116,8 @@ def make_sync(params: OfdmParams, block_size: int = 16384,
     return OfdmSync(params=params, block_size=block_size,
                     max_payload=max_payload, max_frames=max_frames,
                     threshold=threshold, overlap=overlap, max_psym=max_psym,
-                    dec_max=dec_max, enc_max=enc_max, fecs=PAYLOAD_FECS,
+                    dec_max=dec_max, enc_max=enc_max,
+                    fecs=PAYLOAD_FECS_FULL if enable_conv else PAYLOAD_FECS,
                     soft=False, use_pallas=int(use_pallas),
                     xcorr_detect=bool(xcorr_detect),
                     iter_header=bool(iter_header))

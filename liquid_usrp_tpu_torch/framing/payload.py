@@ -14,7 +14,9 @@ Exactness rules carried over from the JAX code:
 * every ``lax.dynamic_slice`` clamps its start into ``[0, len - size]``;
   the port's gathers clamp the same way.
 
-The soft-decision path and the convolutional/RS branches are not ported.
+The convolutional and RS schemes (``PAYLOAD_FECS_FULL``) decode in the
+batched path only for the rows whose header is valid (see
+:func:`_fec_batch`); the soft-decision path is not ported.
 """
 from __future__ import annotations
 
@@ -30,14 +32,16 @@ from ..utils.bits import pack_bits, unpack_bits
 from ..utils.consts import on
 
 __all__ = [
-    "PAYLOAD_FECS", "PAYLOAD_MODS", "EXPANSION", "HEADER_USER_BYTES",
+    "PAYLOAD_FECS", "PAYLOAD_FECS_FULL", "PAYLOAD_MODS", "EXPANSION",
+    "HEADER_USER_BYTES",
     "HEADER_DEC_BYTES", "HEADER_ENC_BYTES", "HEADER_MOD", "HEADER_BPS",
     "HEADER_SYMS", "header_dec_bytes", "header_enc_bytes", "header_syms",
     "scramble", "encode_header", "decode_header", "header_bits_to_bytes",
     "encode_payload", "payload_enc_bytes", "check_budget",
     "required_expansion", "diff_encode_points", "generic_demod_bits",
     "crc_check_dynamic", "payload_points_used", "payload_evm_mse",
-    "frame_evm_db", "decode_payload_batch",
+    "frame_evm_db", "fec_decode_switch", "decode_payload",
+    "decode_payload_batch",
 ]
 
 PAYLOAD_FECS = (
@@ -46,6 +50,10 @@ PAYLOAD_FECS = (
     fec_mod.FEC_GOLAY2412, fec_mod.FEC_SECDED2216, fec_mod.FEC_SECDED3932,
     fec_mod.FEC_SECDED7264,
 )
+# extended set with the Viterbi and RS branches (opt-in per sync); an
+# id-ordered prefix of the scheme enum, as PAYLOAD_FECS
+PAYLOAD_FECS_FULL = PAYLOAD_FECS + (fec_mod.FEC_CONV_V27,
+                                    fec_mod.FEC_CONV_V29, fec_mod.FEC_RS8)
 PAYLOAD_MODS = tuple(range(50))     # every modem scheme id
 EXPANSION = 3                       # worst supported FEC expansion budget
 _MAX_CONST = 256
@@ -352,23 +360,88 @@ def frame_evm_db(hevm_db, pay_mse, used, hdr_syms: int = HEADER_SYMS):
     return 10.0 * torch.log10(torch.clamp(tot, min=1e-12))
 
 
+def _fit_bytes(s: int, out_bytes: int, in_bytes: int) -> int:
+    """The largest decoded size ``<= out_bytes`` whose code in scheme ``s``
+    fits ``in_bytes`` (at least 1)."""
+    n = out_bytes
+    while fec_mod.encoded_length(s, n) > in_bytes and n > 1:
+        n -= 1
+    return n
+
+
+def _decode_fit(s: int, bufs: torch.Tensor, out_bytes: int) -> torch.Tensor:
+    """Decode max-size ``bufs [..., in]`` in scheme ``s`` -> ``[...,
+    out_bytes]``: as many bytes as fit, zero-padded."""
+    n = _fit_bytes(s, out_bytes, bufs.shape[-1])
+    dec = fec_mod.fec_decode(s, bufs[..., :fec_mod.encoded_length(s, n)], n)
+    if n < out_bytes:
+        dec = torch.nn.functional.pad(dec, (0, out_bytes - n))
+    return dec
+
+
+def _is_heavy(s: int) -> bool:
+    return fec_mod._is_conv(s) or s == fec_mod.FEC_RS8
+
+
+def fec_decode_switch(scheme_idx, buf: torch.Tensor, out_bytes: int,
+                      fecs=PAYLOAD_FECS) -> torch.Tensor:
+    """Decode one max-size ``buf`` -> ``[out_bytes]`` in scheme
+    ``fecs[scheme_idx]`` (JAX's ``lax.switch``, which clamps the index: a
+    host read of the index picks the branch)."""
+    idx = min(max(int(scheme_idx), 0), len(fecs) - 1)
+    return _decode_fit(fecs[idx], buf, out_bytes)
+
+
+def decode_payload(sync_enc_max: int, dec_max: int, max_payload: int,
+                   points: torch.Tensor, mod, f0, f1, check, plen, hvalid,
+                   fecs=PAYLOAD_FECS):
+    """One frame's received payload points ``[n_pts]`` -> (payload
+    ``[max_payload]`` uint8, payload_valid)."""
+    dev = points.device
+
+    def one(v, dt=torch.int32):
+        return torch.as_tensor(v, dtype=dt, device=dev).reshape(1)
+
+    pbits, _ = generic_demod_bits(points[None], one(mod), sync_enc_max * 8)
+    enc_buf = scramble(pack_bits(pbits[0]), salt=2)
+    mid = fec_decode_switch(f1, enc_buf, sync_enc_max, fecs)
+    dec = fec_decode_switch(f0, mid, dec_max, fecs)
+    pvalid = one(hvalid, torch.bool) & crc_check_dynamic(
+        one(check), dec[None], one(plen))
+    keep = torch.arange(max_payload, device=dev) < one(plen)
+    payload = torch.where(keep, dec[:max_payload],
+                          torch.zeros_like(dec[:max_payload]))
+    return payload, pvalid[0]
+
+
 def _fec_batch(scheme_ids: torch.Tensor, bufs: torch.Tensor, out_bytes: int,
-               fecs) -> torch.Tensor:
-    """Batched FEC decode ``bufs [K, in]`` with per-row scheme indices:
-    each scheme decodes the whole batch once and a masked select picks
-    each row's result."""
-    in_bytes = bufs.shape[-1]
+               fecs, rows: torch.Tensor = None) -> torch.Tensor:
+    """Batched FEC decode ``bufs [K, in]`` with per-row scheme indices.
+
+    A block-code scheme decodes the whole batch once and a masked select
+    picks each row's result, as JAX.  A convolutional or RS scheme decodes
+    only the rows that carry it (one host read of the ids) and leaves the
+    others; ``rows`` (bool ``[K]``, default all) narrows that to the rows
+    whose result is used, and the conv/RS bytes of the other rows are then
+    zeros where JAX decodes them anyway."""
+    dev = bufs.device
     out = torch.zeros((bufs.shape[0], out_bytes), dtype=torch.uint8,
-                      device=bufs.device)
+                      device=dev)
+    sel = None
+    if any(_is_heavy(s) for s in fecs):
+        ids = scheme_ids.to(torch.int64)
+        if rows is not None:
+            ids = torch.where(rows, ids, torch.full_like(ids, -1))
+        sel = ids.cpu().numpy()
     for idx, s in enumerate(fecs):
-        n = out_bytes
-        while fec_mod.encoded_length(s, n) > in_bytes and n > 1:
-            n -= 1
-        dec = fec_mod.fec_decode(s, bufs[:, :fec_mod.encoded_length(s, n)],
-                                 n)
-        if n < out_bytes:
-            dec = torch.nn.functional.pad(dec, (0, out_bytes - n))
-        out = torch.where((scheme_ids == idx)[:, None], dec, out)
+        if _is_heavy(s):
+            pick = np.nonzero(sel == idx)[0]
+            if len(pick):
+                pick = torch.as_tensor(pick, device=dev)
+                out[pick] = _decode_fit(s, bufs[pick], out_bytes)
+            continue
+        out = torch.where((scheme_ids == idx)[:, None],
+                          _decode_fit(s, bufs, out_bytes), out)
     return out
 
 
@@ -383,8 +456,8 @@ def decode_payload_batch(sync_enc_max: int, dec_max: int, max_payload: int,
     n_tab = 64 if bool((bps_all <= 6).all()) else _MAX_CONST
     pbits, _ = generic_demod_bits(points, mod, sync_enc_max * 8, n_tab)
     enc = scramble(pack_bits(pbits), salt=2)
-    mid = _fec_batch(f1, enc, sync_enc_max, fecs)
-    dec = _fec_batch(f0, mid, dec_max, fecs)
+    mid = _fec_batch(f1, enc, sync_enc_max, fecs, rows=hvalid)
+    dec = _fec_batch(f0, mid, dec_max, fecs, rows=hvalid)
     pvalid = hvalid & crc_check_dynamic(check, dec, plen)
     keep = torch.arange(max_payload, device=points.device)[None, :] < \
         plen[:, None]

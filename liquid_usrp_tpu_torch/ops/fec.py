@@ -1,13 +1,14 @@
 """Forward error correction: the block codes as GF(2) matmul + syndrome
-gather kernels.
+gather kernels, and the dispatch to the convolutional and Reed-Solomon
+codecs.
 
-Port of the block-code half of ``liquid_usrp_tpu/ops/fec.py``: the schemes
-in ``framing.payload.PAYLOAD_FECS`` (none, rep3/5, Hamming(7,4)/(8,4)/
-(12,8), Golay(24,12), SEC-DED(22,16)/(39,32)/(72,64)) with hard-decision
-decoding.  The NumPy table builders are copied verbatim so the tables are
-equal by construction (the tests compare them).  Convolutional and
-Reed-Solomon codes and the soft Golay decoder are not ported yet; their
-scheme ids raise ``NotImplementedError``.
+Port of ``liquid_usrp_tpu/ops/fec.py`` with hard-decision decoding: none,
+rep3/5, Hamming(7,4)/(8,4)/(12,8), Golay(24,12), SEC-DED(22,16)/(39,32)/
+(72,64), the convolutional codes (``ops/conv.py``: v27, v29, v39, v615
+and the punctured v27/v29 variants) and RS(255,223) (``ops/rs.py``).
+Scheme ids and names equal the JAX package's.  The NumPy functions that
+build the tables are copied verbatim, so the tables are equal by
+construction (the tests compare them).  The soft Golay decoder is not ported yet.
 
 Layout: messages are encoded MSB-first; the bit stream is chopped into
 ``k``-bit blocks (zero-padded at the end), each block maps to ``n`` coded
@@ -30,6 +31,7 @@ __all__ = [
     "FEC_HAMMING74", "FEC_HAMMING84", "FEC_HAMMING128",
     "FEC_GOLAY2412",
     "FEC_SECDED2216", "FEC_SECDED3932", "FEC_SECDED7264",
+    "FEC_CONV_V27", "FEC_CONV_V29", "FEC_RS8",
     "fec_names", "fec_from_name", "fec_name",
     "encoded_length", "fec_encode", "fec_decode",
 ]
@@ -44,6 +46,23 @@ FEC_GOLAY2412 = 6
 FEC_SECDED2216 = 7
 FEC_SECDED3932 = 8
 FEC_SECDED7264 = 9
+FEC_CONV_V27 = 10
+FEC_CONV_V29 = 11
+FEC_RS8 = 12
+FEC_CONV_V39 = 13
+FEC_CONV_V615 = 14
+FEC_CONV_V27P23 = 15
+FEC_CONV_V27P34 = 16
+FEC_CONV_V27P45 = 17
+FEC_CONV_V27P56 = 18
+FEC_CONV_V27P67 = 19
+FEC_CONV_V27P78 = 20
+FEC_CONV_V29P23 = 21
+FEC_CONV_V29P34 = 22
+FEC_CONV_V29P45 = 23
+FEC_CONV_V29P56 = 24
+FEC_CONV_V29P67 = 25
+FEC_CONV_V29P78 = 26
 
 _NAMES = {
     FEC_NONE: "none", FEC_REP3: "rep3", FEC_REP5: "rep5",
@@ -51,6 +70,15 @@ _NAMES = {
     FEC_GOLAY2412: "g2412",
     FEC_SECDED2216: "secded2216", FEC_SECDED3932: "secded3932",
     FEC_SECDED7264: "secded7264",
+    FEC_CONV_V27: "v27", FEC_CONV_V29: "v29",
+    FEC_RS8: "rs8",
+    FEC_CONV_V39: "v39", FEC_CONV_V615: "v615",
+    FEC_CONV_V27P23: "v27p23", FEC_CONV_V27P34: "v27p34",
+    FEC_CONV_V27P45: "v27p45", FEC_CONV_V27P56: "v27p56",
+    FEC_CONV_V27P67: "v27p67", FEC_CONV_V27P78: "v27p78",
+    FEC_CONV_V29P23: "v29p23", FEC_CONV_V29P34: "v29p34",
+    FEC_CONV_V29P45: "v29p45", FEC_CONV_V29P56: "v29p56",
+    FEC_CONV_V29P67: "v29p67", FEC_CONV_V29P78: "v29p78",
 }
 _BY_NAME = {v: k for k, v in _NAMES.items()}
 _BY_NAME.update({"hamming74": FEC_HAMMING74, "hamming84": FEC_HAMMING84,
@@ -180,9 +208,7 @@ def _block_code(scheme: int) -> _BlockCode:
     if scheme == FEC_SECDED7264:
         cols = [c for c in range(3, 128) if bin(c).count("1") >= 2][:64]
         return _extend_parity(_systematic_from_H_cols(cols, 7))
-    raise NotImplementedError(
-        f"FEC scheme {scheme} is not a ported block code (convolutional "
-        f"and Reed-Solomon codes are not ported yet)")
+    raise ValueError(f"not a block code scheme: {scheme}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,14 +220,25 @@ def _is_rep(scheme):
     return scheme in (FEC_REP3, FEC_REP5)
 
 
+def _is_conv(scheme):
+    return FEC_CONV_V27 <= scheme <= FEC_CONV_V29 or \
+        FEC_CONV_V39 <= scheme <= FEC_CONV_V29P78
+
+
 def encoded_length(scheme: int, n_bytes: int) -> int:
     """Encoded size in bytes for an ``n_bytes`` input message."""
     if scheme == FEC_NONE:
         return n_bytes
+    if scheme == FEC_RS8:
+        from . import rs
+        return rs.rs_encoded_length(n_bytes)
     if scheme == FEC_REP3:
         return 3 * n_bytes
     if scheme == FEC_REP5:
         return 5 * n_bytes
+    if _is_conv(scheme):
+        from . import conv
+        return conv.encoded_length(scheme, n_bytes)
     c = _block_code(scheme)
     nbits = n_bytes * 8
     nblocks = -(-nbits // c.k)
@@ -212,10 +249,16 @@ def fec_encode(scheme: int, data: torch.Tensor) -> torch.Tensor:
     """Encode uint8 ``[..., n]`` -> uint8 ``[..., encoded_length(n)]``."""
     if scheme == FEC_NONE:
         return data
+    if scheme == FEC_RS8:
+        from . import rs
+        return rs.rs_encode(data)
     if _is_rep(scheme):
         # byte-local repetition: each byte r times consecutively
         r = 3 if scheme == FEC_REP3 else 5
         return torch.repeat_interleave(data, r, dim=-1)
+    if _is_conv(scheme):
+        from . import conv
+        return conv.conv_encode(scheme, data)
     c = _block_code(scheme)
     nbits = data.shape[-1] * 8
     nblocks = -(-nbits // c.k)
@@ -236,9 +279,16 @@ def fec_decode(scheme: int, coded: torch.Tensor, n_bytes: int
                ) -> torch.Tensor:
     """Hard-decision decode ``[..., encoded_length(n_bytes)]`` -> uint8
     ``[..., n_bytes]`` (syndrome table for the block codes, bitwise
-    majority for repetition)."""
+    majority for repetition, Viterbi for the convolutional codes,
+    Berlekamp-Massey for RS; every leading axis is a batch axis)."""
     if scheme == FEC_NONE:
         return coded[..., :n_bytes]
+    if scheme == FEC_RS8:
+        from . import rs
+        return rs.rs_decode(coded, n_bytes)
+    if _is_conv(scheme):
+        from . import conv
+        return conv.conv_decode(scheme, coded, n_bytes)
     lead = coded.shape[:-1]
     if _is_rep(scheme):
         r = 3 if scheme == FEC_REP3 else 5

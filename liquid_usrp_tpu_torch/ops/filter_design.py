@@ -3,8 +3,9 @@
 Copied from ``liquid_usrp_tpu/ops/filter_design.py`` — only what the ported
 paths need: the Kaiser-windowed lowpass design behind
 ``pfb_channelizer_prototype`` and the resamplers, the root raised-cosine
-pulse of the single-carrier frames (``rrcos``) and the half-band filter of
-the 2x stages (``halfband_kaiser``); the tests compare their output with
+pulse of the single-carrier frames (``rrcos``), the half-band filter of
+the 2x stages (``halfband_kaiser``) and the Gaussian pulse of the GMSK
+frames (``gaussian_pulse``); the tests compare their output with
 the JAX package's.  Importing the JAX package would import jax, which the
 port never does.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["kaiser_beta", "firdes_kaiser", "rrcos", "halfband_kaiser",
-           "pfb_channelizer_prototype"]
+           "pfb_channelizer_prototype", "gaussian_pulse"]
 
 
 def kaiser_beta(As: float) -> float:
@@ -83,3 +84,14 @@ def pfb_channelizer_prototype(num_channels: int, m: int,
     n = 2 * M * m
     h = firdes_kaiser(n, 0.5 / M, As)
     return h / np.sum(h) * M  # unity passband gain per channel
+
+
+def gaussian_pulse(k: int, m: int, bt: float) -> np.ndarray:
+    """Gaussian lowpass pulse for GMSK: BT product ``bt``, ``2*k*m+1`` taps,
+    normalized to unit area (phase pulse integrates to 1/2 per symbol via the
+    modulator's scaling)."""
+    n = 2 * k * m + 1
+    t = (np.arange(n) - (n - 1) / 2.0) / k
+    alpha = np.sqrt(np.log(2.0) / 2.0) / bt
+    h = (np.sqrt(np.pi) / alpha) * np.exp(-(np.pi * t / alpha) ** 2)
+    return h / np.sum(h)

@@ -3,8 +3,8 @@
 The port keeps the JAX state and result NamedTuples' class and field names
 (``McrxState``, ``MctxState``, ``OfdmSyncState``, ``NcoState``,
 ``PfbchState``, ``FrameResults``, ``FlexSyncState``, ``FlexResults``,
-``FirState``, ``ResampState``, ``MsresampState``), so one conversion moves
-a mid-stream state across: :func:`from_jax_tree` takes a tree whose leaves
+``GmskSyncState``, ``FirState``, ``ResampState``, ``MsresampState``), so
+one conversion moves a mid-stream state across: :func:`from_jax_tree` takes a tree whose leaves
 are NumPy arrays (``jax.device_get`` of a JAX state, or what
 ``liquid_usrp_tpu/utils/checkpoint.py`` saves) and builds the port's
 NamedTuples with tensors on ``device``; :func:`to_numpy_tree` is the
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..framing.flexframe_sync import FlexResults, FlexSyncState
+from ..framing.gmskframe import GmskSyncState
 from ..framing.ofdm_sync import FrameResults, OfdmSyncState
 from ..models.multichannel import McrxState, MctxState
 from ..ops.fir import FirState
@@ -30,7 +31,8 @@ __all__ = ["from_jax_tree", "to_numpy_tree"]
 
 _CLASSES = {c.__name__: c for c in (
     McrxState, MctxState, OfdmSyncState, NcoState, PfbchState, FrameResults,
-    FlexSyncState, FlexResults, FirState, ResampState, MsresampState)}
+    FlexSyncState, FlexResults, GmskSyncState, FirState, ResampState,
+    MsresampState)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -1,4 +1,4 @@
-"""Profile of the PyTorch/CUDA port's three paths on one CUDA device.
+"""Profile of the PyTorch/CUDA port's four paths on one CUDA device.
 
 Builds the bench mixture as ``chip_smoke.py`` does (N=4, M=48, 400-byte
 payloads, ``block_size=65536``, ``n_blocks=2``), the single-channel stream
@@ -23,7 +23,16 @@ resampled at 0.5 as ``flexframe_rx`` does), and measures:
 * for the flexframe receiver: the same for one 8-block
   ``flex_sync_blocks_batched`` dispatch (blocks 16-23, ``chip_smoke.py``'s
   timed dispatch), with its stage times (front end, candidate decode,
-  results and host copy).
+  results and host copy);
+* for the GMSK receiver, on ``chip_smoke.py``'s GMSK streams (the
+  ``gmskframe_tx`` defaults, 40 frames; and with a v27 payload through the
+  ``--conv`` sync): the same for one 8-block ``gmsk_sync_blocks_batched``
+  dispatch (blocks 8-15), its stages split into front end, candidate
+  decode (timing, CFO, phase tracking, header), payload decode (demap and
+  FEC: the Viterbi under ``--conv``) and results with the host copy; the
+  Viterbi's own stage inside that dispatch (``chip_smoke.viterbi_ms``);
+  and the Viterbi's peak device memory at the largest input a dispatch
+  gives it (v29, 32 rows at the ``fec1`` stage's budget).
 
 Steps after the first feed the same chunk from the carried state; their
 results are not checked (``chip_smoke.py`` checks decoding).  Prints one
@@ -312,6 +321,118 @@ def profile_ff_dispatch(rx_stream, dev, stage_calls=5, wall_calls=5,
     return rec
 
 
+def profile_gm_dispatch(stream, dev, conv, stage_calls=3, wall_calls=3,
+                        prof_calls=2):
+    """One 8-block dispatch of the GMSK receiver (``chip_smoke.py``'s
+    timed dispatch) with its results copied to the host: stage times
+    (front end, candidate decode, payload decode, results and host copy;
+    CUDA events with a sync after each, so that each stage's time holds
+    its own host launches and nothing of the next), their sum, the wall
+    time of whole dispatches (a loop of its own), device busy time and
+    share, kernels, peak memory and the top device kernels."""
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    from liquid_usrp_tpu_torch.framing import payload as payload_codec
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    from liquid_usrp_tpu_torch.ops import modem
+    sync = cs.gm_sync(conv)
+    st0, blocks = cs.gm_dispatch_input(sync, stream, dev)
+    n_blocks, bs = blocks.shape
+    K = sync.max_frames
+
+    def one():
+        _to_host(gf.gmsk_sync_blocks_batched(sync, st0, blocks)[1])
+
+    for _ in range(2):
+        one()
+    stages = {"front_end": 0.0, "candidate_decode": 0.0,
+              "payload_decode": 0.0, "results_to_host": 0.0}
+    for _ in range(stage_calls):
+        torch.cuda.synchronize()
+        e0 = _event()
+        full = torch.cat([st0.tail, blocks.reshape(-1)])
+        exts = full.unfold(0, sync.overlap + bs, bs)
+        z, metric, det, locs = gf._front_end(sync, exts)
+        e1 = _event()
+        torch.cuda.synchronize()
+        row_of = torch.arange(n_blocks, device=dev).repeat_interleave(K)
+        (user, ppts, plen, mod_f, f0, f1, check, hvalid, rssi, evm,
+         cfo) = gf._decode_candidates(sync, z, metric, exts, row_of,
+                                      locs.reshape(-1))
+        e2 = _event()
+        torch.cuda.synchronize()
+        mod_bpsk = torch.full_like(plen, modem.MOD_BPSK)
+        payload, pvalid = payload_codec.decode_payload_batch(
+            sync.enc_max, sync.dec_max, sync.max_payload, ppts, mod_bpsk,
+            f0, f1, check, plen, hvalid, sync.fecs)
+        e3 = _event()
+        torch.cuda.synchronize()
+        t_base = st0.base + (torch.arange(n_blocks, dtype=torch.int32,
+                                          device=dev) * bs)[:, None]
+        _to_host(gf._results(det, locs, t_base, (
+            user, payload, plen, mod_f, f0, f1, check, hvalid, pvalid,
+            rssi, evm, cfo), (n_blocks, K)))
+        e4 = _event()
+        torch.cuda.synchronize()
+        for name, a, b in (("front_end", e0, e1),
+                           ("candidate_decode", e1, e2),
+                           ("payload_decode", e2, e3),
+                           ("results_to_host", e3, e4)):
+            stages[name] += a.elapsed_time(b) / stage_calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(wall_calls):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / wall_calls
+    peak = torch.cuda.max_memory_allocated()
+    kev = _profile(one, prof_calls)
+    busy_ms = sum(_device_us(e) for e in kev) / prof_calls / 1e3
+    top = sorted(kev, key=_device_us, reverse=True)[:8]
+    rec = dict(stage_ms=stages, stage_sum_ms=sum(stages.values()),
+               dispatch_wall_ms=wall_ms,
+               device_busy_ms=busy_ms, busy_share_of_wall=busy_ms / wall_ms,
+               kernels_per_dispatch=sum(e.count for e in kev) / prof_calls,
+               peak_mem_bytes=peak,
+               top=[(e.key[:90], _device_us(e) / prof_calls / 1e3,
+                     e.count / prof_calls) for e in top])
+    if conv:
+        rec["viterbi_ms"] = cs.viterbi_ms(sync, stream, dev, cs.card())
+        rec["viterbi_v29_memory"] = profile_viterbi_memory(sync, dev)
+    print("GMSK dispatch", "--conv" if conv else "", json.dumps(rec),
+          flush=True)
+    return rec
+
+
+def profile_viterbi_memory(sync, dev, rows=32):
+    """Peak device memory and time of one v29 ``conv_decode`` of ``rows``
+    rows at the ``fec1`` stage's budget of ``sync`` (the most trellis
+    steps a dispatch's stage gives it, with ``S = 256`` states), above
+    what was allocated before it."""
+    from liquid_usrp_tpu_torch.framing import payload as payload_codec
+    from liquid_usrp_tpu_torch.ops import fec
+    s = fec.FEC_CONV_V29
+    n = payload_codec._fit_bytes(s, sync.enc_max, sync.enc_max)
+    rng = np.random.default_rng(0x29)
+    data = torch.as_tensor(rng.integers(0, 256, (rows, n), dtype=np.uint8),
+                           device=dev)
+    enc = fec.fec_encode(s, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dec = fec.fec_decode(s, enc, n)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - before
+    if not torch.equal(dec, data):
+        raise AssertionError("v29 at the fec1 budget: wrong decode")
+    rec = dict(rows=rows, n_bytes=n, trellis_steps=n * 8 + 8,
+               peak_mem_bytes=peak, ms=ms)
+    print("Viterbi v29 memory", json.dumps(rec), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_port.json"))
@@ -339,6 +460,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         stream, _ = cs.sc_transmit(str(Path(tmpdir) / "sc.iq"))
         _, ff_stream = cs.ff_transmit(str(Path(tmpdir) / "ff.iq"), dev)
+        gm_stream = cs.gm_transmit(str(Path(tmpdir) / "gm.iq"))
+        gm_conv_stream = cs.gm_transmit(str(Path(tmpdir) / "gmc.iq"), "-c",
+                                        "v27", "-k", "none")
     out["kernels"] = profile_kernels(s1, blocks, dev)
     out["sc_kernels"] = profile_sc_kernels(cs.sc_windows(params, stream,
                                                          dev))
@@ -347,6 +471,9 @@ def main(argv=None) -> int:
     out["sc_configs"] = {str(c): profile_sc_config(c, params, stream, dev)
                          for c in cs.SC_CONFIGS}
     out["flexframe_dispatch"] = profile_ff_dispatch(ff_stream, dev)
+    out["gmsk_dispatch"] = profile_gm_dispatch(gm_stream, dev, False)
+    out["gmsk_conv_dispatch"] = profile_gm_dispatch(gm_conv_stream, dev,
+                                                    True)
     path = Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

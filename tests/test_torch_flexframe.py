@@ -318,10 +318,16 @@ def test_candidates_near_the_window_end_are_clamped():
 
 
 def test_unported_options_raise():
+    """``soft=True`` raises until the soft path is ported; ``enable_conv``
+    takes JAX's extended scheme set (the conv/RS decode itself is held to
+    JAX's in ``test_torch_conv_rs.py``)."""
     p = tff.make_flex_params()
-    for kw in (dict(soft=True), dict(enable_conv=True)):
-        with pytest.raises(NotImplementedError):
-            tfs.make_flex_sync(p, **kw)
+    with pytest.raises(NotImplementedError):
+        tfs.make_flex_sync(p, soft=True)
+    conv = tfs.make_flex_sync(p, enable_conv=True)
+    assert conv.fecs == jfs.make_flex_sync(jff.make_flex_params(),
+                                           enable_conv=True).fecs
+    assert conv._replace(fecs=()) == tfs.make_flex_sync(p)._replace(fecs=())
     with pytest.raises(ValueError):
         tfs.make_flex_sync(p, expansion=0)
 
@@ -331,9 +337,10 @@ def _count(out: str, what: str) -> int:
 
 
 def test_flexframe_and_packet_apps(cpu_env, tmp_path, capsys):
-    """TX -> RX loopbacks of both CLI pairs (through ``--snr/--cfo``);
-    ``packet_rx`` counts a valid burst of another format as foreign;
-    unported and unknown flags exit 1; ``-h`` prints the usage."""
+    """TX -> RX loopbacks of both CLI pairs (through ``--snr/--cfo``, and
+    a v27 payload through ``--conv``); ``packet_rx`` counts a valid burst
+    of another format as foreign; unported and unknown flags exit 1; ``-h``
+    prints the usage."""
     iq = str(tmp_path / "ff.iq")
     assert flexframe_tx.main(["-o", iq, "-N", "3", "-P", "100"]) == 0
     assert flexframe_rx.main(["-i", iq, "-p", "256", "--snr", "20",
@@ -356,11 +363,16 @@ def test_flexframe_and_packet_apps(cpu_env, tmp_path, capsys):
     assert _count(out, "valid packets") == 4
     assert _count(out, "non-frame64 bursts") == 1
     assert "non-frame64 burst ignored (len=32)" in out
-    for argv in (["-i", iq, "--conv"], ["-i", iq, "--soft"], ["-Z"]):
+    for argv in (["-i", iq, "--soft"], ["-Z"]):
         with pytest.raises(SystemExit) as exc:
             flexframe_rx.main(argv)
         assert exc.value.code == 1
-    assert flexframe_tx.main(["-o", iq, "-c", "v27"]) == 1
+    capsys.readouterr()
+    assert flexframe_tx.main(["-o", iq, "-N", "2", "-P", "40", "-c", "v27",
+                              "-k", "none"]) == 0
+    assert "--conv" in capsys.readouterr().out
+    assert flexframe_rx.main(["-i", iq, "-q", "-p", "64", "--conv"]) == 0
+    assert _count(capsys.readouterr().out, "valid packets") == 2
     capsys.readouterr()
     for mod in (flexframe_tx, flexframe_rx, packet_tx, packet_rx):
         assert mod.main(["-h"]) == 0
