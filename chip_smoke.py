@@ -6,8 +6,11 @@ N-channel detect + decode) at the full bench configuration, the
 single-channel OFDM transceiver (``OfdmTxRx``, the ``ofdmflexframe_tx/rx``
 apps), the single-carrier flexframe path (``flexframe_tx/rx``,
 ``packet_tx/rx``: FIR, resamplers, flexframe sync) and the GMSK path
-(``gmskframe_tx/rx``) at the app defaults, and the convolutional and
-Reed-Solomon FEC layer (``--conv``):
+(``gmskframe_tx/rx``) at the app defaults, the convolutional and
+Reed-Solomon FEC layer (``--conv``), the soft-decision decode path
+(``--soft``), and the measurement ops and small CLIs (``rssi``,
+``asgram_rx``, ``narrowband_tx``, ``halfduplex_txrx``,
+``fullduplex_txrx``):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``liquid_usrp_tpu_torch/csrc``;
@@ -119,7 +122,37 @@ Reed-Solomon FEC layer (``--conv``):
    over the whole stream and ms per 8-block dispatch, without and with
    ``--conv``.  B1-B5 launch on none of the runs of 16-18 but the OFDM
    app's (whose detector is B1 at its default level, as on every OFDM
-   run): their counts there must be 0.
+   run): their counts there must be 0;
+20. the soft decode ops on the card against the port on the CPU:
+   ``generic_demod_soft`` on the payload points of a real flexframe
+   ``soft`` dispatch (32 candidates of the app-default stream) at tables of
+   64 (QPSK) and 256 (qam256) entries, LLRs within 1e-6 of max |LLR| with
+   equal signs beyond (the 256-entry table on 8 rows on the CPU), with
+   the demapper's ms and peak memory; ``decode_payload_batch_soft`` on
+   that dispatch equal on the header-valid rows; ``golay_decode_soft`` on
+   8,192 noisy blocks equal except near-ties (the two best scores within
+   1e-5 of the best; counted), and unchanged with TF32 on and
+   ``set_float32_matmul_precision("medium")``;
+21. the soft loopbacks: ``ofdmflexframe``, ``flexframe`` and ``gmskframe``
+   TX with 10 v27 frames -> RX ``--conv --soft``: every frame valid, and
+   ``OfdmTxRx`` and the flexframe and GMSK syncs with ``soft=True`` byte
+   for byte; the GMSK v27 file through ``--snr -1.5``, near the header
+   waterfall: the card's soft decode gives the CPU's payload-valid frames
+   and bytes, and at least as many as the hard decode, whose count is
+   printed;
+22. the measurement ops and small CLIs: AGC (relative 1e-5), the
+   spectrogram (1e-3 dB, equal peak bins) and the ring log (equal) on the
+   card against the CPU; ``narrowband_tx -> asgram_rx / rssi`` on the card
+   against the same apps on the CPU (equal peak frequencies, levels within
+   0.01 dB); ``halfduplex_txrx -N 2`` delivers 2/2 and ``fullduplex_txrx``
+   every frame both ways;
+23. soft times (CUDA events, after a warm-up, decode-verified): the GMSK
+   ``--conv --soft`` dispatch on blocks 8-15 beside the ``--conv`` one, in
+   turns (hard, soft, soft, hard), and the soft dispatch's payload decode
+   against the CPU's; the Golay ML stage on one
+   dispatch's header blocks.  The soft GMSK and flexframe runs and the
+   A13 ops launch none of B1-B5; the soft OFDM run and the duplex CLIs
+   launch B1 only, the OFDM detector.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -211,6 +244,13 @@ GM_TIMED_RUNS = 2
 GM_DISPATCH = 1                # the timed dispatch: blocks 8..15
 # the --conv loopbacks of the OFDM and flexframe apps
 CV_FRAMES = 10
+# the soft decode path (phases 20, 21 and 23)
+SOFT_LLR_RTOL = 1e-6           # LLRs: of the largest |LLR| of the call
+NEAR_TIE = 1e-5                # Golay: best-two score gap over the best
+SOFT_GOLAY_BLOCKS = 8192
+SOFT_CPU_ROWS = 8              # rows of the 256-entry demap held on the CPU
+SOFT_FRAMES, SOFT_SEED = 10, 42
+SOFT_SNR = "-1.5"              # the low-SNR GMSK v27 file: soft above hard
 
 
 def card() -> str:
@@ -1420,10 +1460,11 @@ def viterbi_ms(sync, stream, dev, label):
     fec_batch = payload_codec._fec_batch
     stages = []
 
-    def timed(scheme_ids, bufs, out_bytes, fecs, rows=None):
+    def timed(scheme_ids, bufs, out_bytes, fecs, rows=None, **soft):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fec_batch(scheme_ids, bufs, out_bytes, fecs, rows=rows)
+        out = fec_batch(scheme_ids, bufs, out_bytes, fecs, rows=rows,
+                        **soft)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         stages.append((ms, int(((scheme_ids == v27) & rows).sum()),
@@ -1511,6 +1552,404 @@ def run_ofdm_conv(tmpdir):
     torch.cuda.synchronize()
     if kernels.launches["detect_metric_xcorr_onepass"] <= 0:
         raise AssertionError("ofdmflexframe_rx --conv did not launch B1")
+    return dict(kernels.launches)
+
+
+def llr_close(what, got, want, limit=SOFT_LLR_RTOL):
+    """Raise unless LLRs ``got`` lie within ``limit`` of max |want| of
+    ``want``, with equal signs wherever |want| exceeds that.  Returns the
+    largest difference over max |want|."""
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max()) / scale
+    sure = want.abs() > limit * scale
+    if not (err <= limit and torch.equal(torch.sign(got[sure]),
+                                         torch.sign(want[sure]))):
+        raise AssertionError(f"{what}: LLRs off by {err:.3e} of max |llr| "
+                             f"(limit {limit:g}) or signs differ")
+    return err
+
+
+def capture_soft_decode(batched, sync, st, blocks):
+    """One soft dispatch ``batched(sync, st, blocks)``; returns the
+    arguments it passed to ``payload.decode_payload_batch_soft`` (the
+    dispatch's payload points and header fields), captured by wrapping the
+    function for this dispatch only."""
+    from liquid_usrp_tpu_torch.framing import payload as pc
+    fn = pc.decode_payload_batch_soft
+    got = []
+
+    def spy(*args, **kw):
+        got.append((args, kw))
+        return fn(*args, **kw)
+
+    pc.decode_payload_batch_soft = spy
+    try:
+        batched(sync, st, blocks)
+    finally:
+        pc.decode_payload_batch_soft = fn
+    if len(got) != 1:
+        raise AssertionError(f"soft dispatch decoded {len(got)} times")
+    return got[0]
+
+
+def soft_payload_vs_cpu(what, call):
+    """``decode_payload_batch_soft`` on the card against the port on the
+    CPU for one captured dispatch ``call``: ``payload_valid`` equal, and
+    the payloads equal on the header-valid rows.  Returns (valid rows,
+    header-valid rows)."""
+    from liquid_usrp_tpu_torch.framing import payload as pc
+    args, kw = call
+    got = [v.cpu() for v in pc.decode_payload_batch_soft(*args, **kw)]
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    want = pc.decode_payload_batch_soft(*cpu, **kw)
+    hv = cpu[9]
+    if not (torch.equal(got[1], want[1]) and
+            torch.equal(got[0][hv], want[0][hv])):
+        raise AssertionError(f"{what}: the card's soft payload decode "
+                             f"differs from the CPU's")
+    return int(want[1].sum()), int(hv.sum())
+
+
+def golay_vs_cpu(dev, label):
+    """``golay_decode_soft`` on ``SOFT_GOLAY_BLOCKS`` noisy header blocks:
+    the card equals the CPU except on near-ties (the two best scores
+    within ``NEAR_TIE`` of the best), which are counted; the same result
+    again with TF32 on and ``set_float32_matmul_precision("medium")``,
+    restored afterwards; and the ML stage's ms on one dispatch's header
+    blocks (``R`` candidates x 11 blocks)."""
+    from liquid_usrp_tpu_torch.ops import fec
+    rng = np.random.default_rng(0x601A)
+    c = fec._block_code(fec.FEC_GOLAY2412)
+    msg = rng.integers(0, 2, (SOFT_GOLAY_BLOCKS, 12)).astype(np.uint8)
+    cw = 2.0 * ((msg @ c.G) % 2) - 1.0
+    L = torch.as_tensor((cw + 0.9 * rng.standard_normal(cw.shape))
+                        .astype(np.float32))
+    want = fec.golay_decode_soft(L)
+    got = fec.golay_decode_soft(L.to(dev)).cpu()
+    top2 = torch.topk(fec._golay_scores(L), 2).values
+    tie = (top2[:, 0] - top2[:, 1]) <= NEAR_TIE * top2[:, 0].abs().clamp(
+        min=1.0)
+    differ = (got != want).any(-1)
+    if (differ & ~tie).any():
+        raise AssertionError(f"Golay ML: {int((differ & ~tie).sum())} "
+                             f"blocks differ from the CPU off a near-tie")
+    prev = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("medium")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        again = fec.golay_decode_soft(L.to(dev)).cpu()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not torch.equal(again, got):
+        raise AssertionError("Golay ML: the result moved under matmul "
+                             "precision 'medium' with TF32 on")
+    hdr = L[:FF_BATCH * FF_MAX_FRAMES * 11].reshape(-1, 11, 24).to(dev)
+    ms = cuda_ms(lambda: fec.golay_decode_soft(hdr), 20)
+    errs = int((want.numpy() != msg).any(-1).sum())
+    rows = torch.nonzero(differ).flatten().tolist()
+    print(f"Golay ML on the card vs the CPU, {SOFT_GOLAY_BLOCKS} noisy "
+          f"blocks ({errs} word errors): equal except {len(rows)} blocks "
+          f"{rows[:20]}, all near-ties ({int(tie.sum())} near-ties at "
+          f"{torch.nonzero(tie).flatten().tolist()[:20]}, best-two gap "
+          f"<= {NEAR_TIE:g} of the best); unchanged under "
+          f"set_float32_matmul_precision('medium') with TF32 on; ML stage "
+          f"{ms:.3f} ms for one dispatch's {hdr.shape[0]} x 11 header "
+          f"blocks on {label}", flush=True)
+    return ms
+
+
+def soft_ops_vs_cpu(dev, tmpdir, label):
+    """The soft ops on the card against the port on the CPU (phase 20):
+    ``generic_demod_soft`` on the payload points of a real flexframe soft
+    dispatch (blocks ``FF_DISPATCH * FF_BATCH``.., 1024-byte QPSK frames)
+    at tables of 64 (QPSK) and 256 (qam256) entries, with the demapper's
+    stage ms and peak memory at that dispatch; ``decode_payload_batch_soft``
+    on that dispatch; and the Golay ML decoder.  Returns the kernel launch
+    counts of its runs."""
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.framing import payload as pc
+    from liquid_usrp_tpu_torch.ops import kernels, modem
+    kernels.reset_launch_counts()
+    path = str(Path(tmpdir) / "flexframe_soft.iq")
+    _, rx_stream = ff_transmit(path, dev)
+    sync = ff_sync()._replace(soft=True)
+    st, blocks = ff_dispatch_input(sync, rx_stream, dev)
+    call = capture_soft_decode(fs.flex_sync_blocks_batched, sync, st,
+                               blocks)
+    points = call[0][3]
+    R, n = points.shape
+    max_bits = sync.enc_max * 8
+    lines = []
+    for n_tab, scheme, rows in ((64, modem.MOD_QPSK, R),
+                                (256, modem.MOD_QAM256, SOFT_CPU_ROWS)):
+        mod = torch.full((R,), scheme, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got = pc.generic_demod_soft(points, mod, max_bits, n_tab)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e6
+        ms = cuda_ms(lambda: pc.generic_demod_soft(points, mod, max_bits,
+                                                   n_tab), 3)
+        want = pc.generic_demod_soft(points[:rows].cpu(), mod[:rows].cpu(),
+                                     max_bits, n_tab)
+        err = llr_close(f"generic_demod_soft, table {n_tab}",
+                        got[:rows].cpu(), want)
+        lines.append(f"table {n_tab} ({modem.mod_name(scheme)}, {rows} rows "
+                     f"vs the CPU): max diff {err:.2e} of max |llr|, "
+                     f"{ms:.3f} ms, peak {peak:.1f} MB above its inputs")
+        if n_tab == 64:
+            demap = (ms, peak)
+    n_ok, n_hv = soft_payload_vs_cpu("flexframe soft dispatch", call)
+    torch.cuda.synchronize()
+    print(f"soft demapper on the card vs the CPU at the flexframe dispatch "
+          f"({R} candidates x {n} points, {max_bits} LLRs each; limit "
+          f"{SOFT_LLR_RTOL:g}): {'; '.join(lines)}; "
+          f"decode_payload_batch_soft equal to the CPU ({n_ok} valid of "
+          f"{n_hv} header-valid rows) on {label}", flush=True)
+    golay_vs_cpu(dev, label)
+    return dict(kernels.launches), demap
+
+
+def soft_loopback(name, tx, rx, tx_argv, rx_argv, tmpdir):
+    """``tx`` writes ``SOFT_FRAMES`` v27 frames with ``tx_argv``; ``rx
+    --conv --soft rx_argv`` must decode every one.  Returns the file."""
+    p = str(Path(tmpdir) / f"{name}_soft.iq")
+    run_app(tx.main, ["-o", p, "-N", str(SOFT_FRAMES), "-s", str(SOFT_SEED),
+                      "-c", "v27", "-k", "none", *tx_argv])
+    t0 = time.perf_counter()
+    text = run_app(rx.main, ["-i", p, "-q", "--conv", "--soft", *rx_argv])
+    if app_count(text, "valid packets") != SOFT_FRAMES:
+        raise AssertionError(f"{name} --conv --soft: {text[-400:]}")
+    print(f"{name} --conv --soft: {SOFT_FRAMES}/{SOFT_FRAMES} valid "
+          f"({' '.join(tx_argv)}; rx {' '.join(rx_argv)}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return p
+
+
+def ofdm_draws(n, seed, payload):
+    """{packet id: payload} as ``ofdmflexframe_tx`` draws them."""
+    rng = np.random.default_rng(seed)
+    sent = {}
+    for pid in range(n):
+        rng.integers(0, 256, 6, dtype=np.uint8)      # header bytes 2..7
+        sent[pid] = rng.integers(0, 256, payload, dtype=np.uint8)
+    return sent
+
+
+def run_soft_ofdm(dev, tmpdir):
+    """The OFDM app's ``--conv --soft`` loopback (phase 21): the CLI and
+    ``OfdmTxRx(enable_conv=True, soft=True)`` payload-exact.  Its detector
+    is the OFDM path's (B1), so its launch counts are returned apart."""
+    from liquid_usrp_tpu_torch.apps import ofdmflexframe_rx, ofdmflexframe_tx
+    from liquid_usrp_tpu_torch.io.streams import read_iq
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import OfdmTxRx
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    p = soft_loopback("ofdmflexframe", ofdmflexframe_tx, ofdmflexframe_rx,
+                      ["-P", "100"], ["-p", "512"], tmpdir)
+    rx = OfdmTxRx(M=M, cp_len=CP, taper_len=TAPER, block_size=SC_BLOCK,
+                  batch_blocks=SC_BATCH, max_payload=512, enable_conv=True,
+                  soft=True, device=dev)
+    rx.start_rx()
+    check_sc_frames("OfdmTxRx --conv --soft", sc_decode(rx, read_iq(p)),
+                    ofdm_draws(SOFT_FRAMES, SOFT_SEED, 100))
+    torch.cuda.synchronize()
+    if kernels.launches["detect_metric_xcorr_onepass"] <= 0:
+        raise AssertionError("ofdmflexframe_rx --soft did not launch B1")
+    print(f"OfdmTxRx --conv --soft: {SOFT_FRAMES}/{SOFT_FRAMES} payload "
+          f"exact", flush=True)
+    return dict(kernels.launches)
+
+
+def frames_key(frames):
+    return [(f["t"], f["header"].tobytes(), f["payload"].tobytes())
+            for f in frames if f["valid"]]
+
+
+def run_soft(dev, tmpdir, label):
+    """The soft loopbacks of the flexframe and GMSK apps, the low-SNR
+    GMSK file on the card against the CPU (phase 21) and the soft GMSK
+    dispatch beside the hard one (phase 23).  Returns the kernel launch
+    counts of its runs and the two dispatch times."""
+    from liquid_usrp_tpu_torch.apps import (flexframe_rx, flexframe_tx,
+                                            gmskframe_rx, gmskframe_tx)
+    from liquid_usrp_tpu_torch.apps.common import (apply_channel,
+                                                   occupied_power,
+                                                   resample_stream)
+    from liquid_usrp_tpu_torch.framing import flexframe as ff
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    from liquid_usrp_tpu_torch.io.streams import read_iq
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    p = soft_loopback("flexframe", flexframe_tx, flexframe_rx,
+                      ["-P", "100"], ["-p", "256"], tmpdir)
+    fsync = fs.make_flex_sync(ff.make_flex_params(), block_size=FF_BLOCK,
+                              max_payload=256, max_frames=FF_MAX_FRAMES,
+                              enable_conv=True, soft=True)
+    check_ff_frames("flexframe sync --conv --soft", ff_decode(
+        fsync, resample_stream(read_iq(p), FF_RX_RATE, dev), dev),
+        tx_draws(SOFT_FRAMES, SOFT_SEED, ff.FLEX_HEADER_USER, 100))
+    p = soft_loopback("gmskframe", gmskframe_tx, gmskframe_rx,
+                      ["-P", str(GM_PAYLOAD)], [], tmpdir)
+    soft = gm_sync(conv=True)._replace(soft=True)
+    hard = gm_sync(conv=True)
+    stream = read_iq(p)
+    sent = tx_draws(SOFT_FRAMES, SOFT_SEED, 8, GM_PAYLOAD)
+    check_ff_frames("GMSK sync --conv --soft", ff_decode(
+        soft, stream, dev, gmsk=True), sent, exact_count=False)
+    print(f"flexframe and GMSK syncs --conv --soft: {SOFT_FRAMES}/"
+          f"{SOFT_FRAMES} each, headers and payloads byte for byte",
+          flush=True)
+    # near the header waterfall: the card's soft decode is the CPU's
+    low = apply_channel(stream, {"snr": SOFT_SNR},
+                        signal_power=occupied_power(stream))
+    t0 = time.perf_counter()
+    on_card = ff_decode(soft, low, dev, gmsk=True)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = ff_decode(soft, low, torch.device("cpu"), gmsk=True)
+    t_cpu = time.perf_counter() - t0
+    n_hard = len(frames_key(ff_decode(hard, low, dev, gmsk=True)))
+    card_ok, cpu_ok = frames_key(on_card), frames_key(on_cpu)
+    good = {(h.tobytes(), pl.tobytes()) for h, pl in sent}
+    if card_ok != cpu_ok or any((h, pl) not in good
+                                for _, h, pl in card_ok):
+        raise AssertionError(f"GMSK --snr {SOFT_SNR} --conv --soft: the "
+                             f"card's {len(card_ok)} valid frames are not "
+                             f"the CPU's {len(cpu_ok)}")
+    if len(card_ok) < n_hard:
+        raise AssertionError(f"GMSK --snr {SOFT_SNR}: soft {len(card_ok)} "
+                             f"< hard {n_hard}")
+    print(f"GMSK v27 at --snr {SOFT_SNR} ({SOFT_FRAMES} frames): soft "
+          f"{len(card_ok)}/{SOFT_FRAMES} valid on the card, the same frames "
+          f"and bytes as the CPU's soft decode ({len(on_card)} detections "
+          f"on the card, {len(on_cpu)} on the CPU; {t_card:.1f} s vs "
+          f"{t_cpu:.1f} s), hard {n_hard}/{SOFT_FRAMES}", flush=True)
+    # the soft and the hard --conv dispatch, blocks 8-15 of the 40-frame
+    # v27 stream
+    stream40 = gm_transmit(str(Path(tmpdir) / "gmsk_v27_soft.iq"), "-c",
+                           "v27", "-k", "none")
+    syncs = {"hard": hard, "soft": soft}
+    st, blocks = gm_dispatch_input(soft, stream40, dev)
+    counts = {"hard": [], "soft": []}
+    runs = {"hard": [], "soft": []}
+    # in turns (hard, soft, soft, hard), each turn after its own warm-up
+    for what in ("hard", "soft", "soft", "hard"):
+        def dispatch():
+            _, res = gf.gmsk_sync_blocks_batched(syncs[what], st, blocks)
+            counts[what].append(int(_to_host(res).payload_valid.sum()))
+        runs[what].append(cuda_ms(dispatch, GM_TIMED_RUNS))
+    for what, n in counts.items():
+        if len(set(n)) != 1 or n[0] <= 0:
+            raise AssertionError(f"GMSK {what} --conv dispatches decoded {n}")
+    times = {w: sum(r) / len(r) for w, r in runs.items()}
+    times.update({w + "_frames": n[0] for w, n in counts.items()})
+    times.update({w + "_turns": r for w, r in runs.items()})
+    call = capture_soft_decode(gf.gmsk_sync_blocks_batched, soft, st,
+                               blocks)
+    n_ok, n_hv = soft_payload_vs_cpu("GMSK v27 soft dispatch", call)
+    torch.cuda.synchronize()
+    turns = {w: " / ".join(f"{t:.3f}" for t in times[w + "_turns"])
+             for w in ("hard", "soft")}
+    print(f"GMSK --conv dispatch (blocks {GM_DISPATCH * GM_BATCH}.., "
+          f"decode-verified, in turns hard, soft, soft, hard): hard "
+          f"{times['hard']:.3f} ms ({turns['hard']}; {times['hard_frames']} "
+          f"frames), --soft {times['soft']:.3f} ms ({turns['soft']}; "
+          f"{times['soft_frames']} frames); the soft dispatch's payload "
+          f"decode equals the CPU's ({n_ok} valid of {n_hv} header-valid "
+          f"rows) on {label}", flush=True)
+    return dict(kernels.launches), times
+
+
+def run_a13(dev, tmpdir, label):
+    """The measurement ops and small CLIs on the card (phase 22): AGC,
+    spectrogram and ring log against the CPU; ``narrowband_tx`` ->
+    ``asgram_rx`` / ``rssi`` on the card against the same apps on the
+    CPU.  Returns the kernel launch counts of its runs."""
+    import os
+    from liquid_usrp_tpu_torch.apps import asgram_rx, narrowband_tx, rssi
+    from liquid_usrp_tpu_torch.ops import agc, kernels, spectrum, window
+    from liquid_usrp_tpu_torch.utils.device import DEVICE_ENV
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(0xA13)
+    n = 1 << 16
+    x = torch.as_tensor((np.repeat([0.3, 3.0, 0.05, 1.0], n // 4) *
+                         (rng.normal(size=n) + 1j * rng.normal(size=n)))
+                        .astype(np.complex64))
+    outs = [agc.agc_block(agc.agc_init(0.01, device=d), x.to(d))
+            for d in (dev, "cpu")]
+    agc_err = max(float(((a.cpu() - b).abs() / b.abs().clamp(min=1e-6))
+                        .max()) for a, b in zip(outs[0][1:3], outs[1][1:3]))
+    sg = spectrum.spectrogram_create(64)
+    got = spectrum.spectrogram_block(sg, x.to(dev))
+    want = spectrum.spectrogram_block(sg, x)
+    psd_err = float((got[0].cpu() - want[0]).abs().max())
+    rings = [window.ring_init(1024, device=d) for d in (dev, "cpu")]
+    for lo, hi in ((0, 700), (700, 900), (900, n)):
+        rings = [window.ring_push(r, x[lo:hi].to(r.buf.device))
+                 for r in rings]
+    if not (agc_err <= 1e-5 and psd_err <= 1e-3 and
+            torch.equal(got[2].cpu(), want[2]) and
+            torch.equal(rings[0].buf.cpu(), rings[1].buf)):
+        raise AssertionError(f"A13 ops: AGC {agc_err:.2e}, PSD {psd_err:.2e}"
+                             f" dB, or peaks or ring logs differ")
+    f = str(Path(tmpdir) / "nb.iq")
+    run_app(narrowband_tx.main, ["-o", f, "-n", "20000"])
+    texts = {}
+    for where in ("card", "cpu"):
+        if where == "cpu":
+            os.environ[DEVICE_ENV] = "cpu"
+        try:
+            texts[where] = (run_app(asgram_rx.main, ["-i", f, "-L", "8"]),
+                            run_app(rssi.main, ["-i", f, "-L", "4096"]))
+        finally:
+            os.environ.pop(DEVICE_ENV, None)
+    peaks = {w: re.findall(r"f=([-+.\d]+)", t[0]) for w, t in texts.items()}
+    levels = {w: [float(v) for v in re.findall(r"rssi =\s+([-.\d]+)", t[1])]
+              for w, t in texts.items()}
+    if not (len(peaks["card"]) == 8 and peaks["card"] == peaks["cpu"] and
+            len(levels["card"]) == len(levels["cpu"]) > 0 and
+            max(abs(a - b) for a, b in zip(levels["card"],
+                                           levels["cpu"])) <= 0.011):
+        raise AssertionError(f"asgram_rx / rssi on the card vs the CPU: "
+                             f"{peaks} {levels}")
+    torch.cuda.synchronize()
+    print(f"A13 on the card vs the CPU: AGC over {n} samples within "
+          f"{agc_err:.2e} (relative, limit 1e-5), spectrogram within "
+          f"{psd_err:.2e} dB with the same peak bins, ring logs equal; "
+          f"narrowband_tx -> asgram_rx (8 rows, peaks equal) and rssi "
+          f"({len(levels['card'])} levels within 0.01 dB) on {label}",
+          flush=True)
+    return dict(kernels.launches)
+
+
+def run_duplex(label):
+    """``halfduplex_txrx -N 2`` delivers 2/2 and ``fullduplex_txrx``
+    (its defaults) every frame both ways, on the card (phase 22).  Their
+    OfdmTxRx endpoints detect with B1; their launch counts are returned."""
+    from liquid_usrp_tpu_torch.apps import fullduplex_txrx, halfduplex_txrx
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    text = run_app(halfduplex_txrx.main, ["-N", "2", "-q"])
+    if "2/2 delivered" not in text:
+        raise AssertionError(f"halfduplex_txrx: {text[-300:]}")
+    t1 = time.perf_counter()
+    text = run_app(fullduplex_txrx.main, ["-q"])     # exits 1 on a loss
+    n_ok = text.count("valid packets       :      5 (100.00%)")
+    if n_ok != 2:
+        raise AssertionError(f"fullduplex_txrx: {text[-600:]}")
+    torch.cuda.synchronize()
+    if kernels.launches["detect_metric_xcorr_onepass"] <= 0:
+        raise AssertionError("the duplex runs did not launch B1")
+    print(f"halfduplex_txrx -N 2: 2/2 delivered ({t1 - t0:.1f} s); "
+          f"fullduplex_txrx: 5/5 both ways ({time.perf_counter() - t1:.1f} "
+          f"s) on {label}", flush=True)
     return dict(kernels.launches)
 
 
@@ -1623,6 +2062,31 @@ def main() -> int:
           f"({', '.join(KERNELS)}); the OFDM --conv run, on the OFDM "
           f"path's detector: {ofdm_conv}", flush=True)
     path_runs += gm_runs + [ofdm_conv]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        soft_ops, demap = soft_ops_vs_cpu(dev, tmpdir, label)
+        soft_runs, soft_times = run_soft(dev, tmpdir, label)
+        soft_ofdm = run_soft_ofdm(dev, tmpdir)
+        a13 = run_a13(dev, tmpdir, label)
+    duplex = run_duplex(label)
+    # the soft GMSK and flexframe runs and the A13 ops run no kernel; the
+    # soft OFDM run and the duplex CLIs run the OFDM detector, B1, only
+    for name in KERNELS:
+        n = soft_ops[name] + soft_runs[name] + a13[name]
+        if n != 0:
+            raise AssertionError(f"{name} was launched {n} times by the "
+                                 f"soft and A13 runs")
+    for what, run in (("soft OFDM", soft_ofdm), ("duplex", duplex)):
+        other = {k: v for k, v in run.items()
+                 if k != "detect_metric_xcorr_onepass" and v}
+        if other:
+            raise AssertionError(f"the {what} runs launched {other}")
+    print(f"soft and A13 runs: B1-B5 launched 0 times; the soft OFDM run "
+          f"{soft_ofdm} and the duplex runs {duplex}, B1 only", flush=True)
+    print(f"soft timings on {label}: GMSK --conv --soft dispatch "
+          f"{soft_times['soft']:.3f} ms vs --conv {soft_times['hard']:.3f} "
+          f"ms; soft demapper at the flexframe dispatch {demap[0]:.3f} ms, "
+          f"peak {demap[1]:.1f} MB", flush=True)
+    path_runs += [soft_ops, soft_runs, soft_ofdm, a13, duplex]
     # B3 is on the single-channel path (legacy detector, level 1); B4 and
     # B5 are on no path (the JAX package calls them only from tests): their
     # counts over every path run above must be 0

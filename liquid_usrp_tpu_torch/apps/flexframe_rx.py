@@ -8,8 +8,8 @@ defaults): the stream goes through the ``--snr/--cfo/--delay`` impairments
 2048) in 8-block batched dispatches; a line per frame, then the aggregate
 stats.  Runs on the first CUDA device (``LIQUID_USRP_TORCH_DEVICE=cpu``
 asks for the CPU).  ``--conv`` adds the convolutional and Reed-Solomon
-payload FEC branches; ``--soft`` needs the soft decoder, which is not
-ported yet: it is rejected with an error.
+payload FEC branches; ``--soft`` decodes from soft-decision LLRs: exact-ML
+Golay headers and soft Viterbi payloads.
 
     python -m liquid_usrp_tpu_torch.apps.flexframe_rx -i tx.iq
 """
@@ -26,8 +26,7 @@ from ..framing.payload import EXPANSION
 from ..io.streams import read_iq
 from ..utils.device import default_device
 from .common import (RxStats, apply_channel, iter_sync_results,
-                     occupied_power, parse_args, reject_unported,
-                     resample_stream)
+                     occupied_power, parse_args, resample_stream)
 
 USAGE = """flexframe_rx -i in.iq [options]
   h : usage              i : input IQ file (required)
@@ -37,7 +36,8 @@ USAGE = """flexframe_rx -i in.iq [options]
   e : decode budget (expansion), default 3 (TX prints the needed value)
   --snr/--cfo/--delay/--seed : virtual channel impairments
   --conv : enable convolutional/RS payload FEC decode branches
-  (--soft is not supported by the PyTorch port yet)
+  --soft : soft-decision (LLR) decode: exact-ML Golay header, soft
+          Viterbi for conv payload FECs
 """
 
 
@@ -49,7 +49,6 @@ def main(argv=None) -> int:
     if "h" in flags:
         print(USAGE)
         return 0
-    reject_unported(flags, {"soft": "soft-decision decoding"})
     path = flags.get("i")
     if not path:
         print(USAGE)
@@ -69,6 +68,7 @@ def main(argv=None) -> int:
                               max_payload=int(flags.get("p", 2048)),
                               max_frames=4,
                               enable_conv="conv" in flags,
+                              soft="soft" in flags,
                               expansion=int(flags.get("e", EXPANSION)))
     stats = RxStats()
     t0 = time.time()

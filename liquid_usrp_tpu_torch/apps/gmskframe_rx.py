@@ -7,8 +7,8 @@ GMSK synchronizer (``block_size=8192``, ``max_frames=4``, ``-p`` payload
 budget, default 1024) in 8-block batched dispatches; a line per frame,
 the aggregate stats, the packet error rate and the mean SNR estimate.
 ``--conv`` adds the convolutional and Reed-Solomon payload FEC branches;
-``--soft`` needs the soft decoder, which is not ported yet: it is rejected
-with an error.  Runs on the first CUDA device
+``--soft`` decodes from soft-decision LLRs: exact-ML Golay headers and
+soft Viterbi payloads.  Runs on the first CUDA device
 (``LIQUID_USRP_TORCH_DEVICE=cpu`` asks for the CPU).
 
     python -m liquid_usrp_tpu_torch.apps.gmskframe_rx -i tx.iq
@@ -25,8 +25,7 @@ from ..framing.payload import EXPANSION
 from ..io.streams import read_iq
 from ..utils.device import default_device
 from .common import (RxStats, apply_channel, iter_sync_results,
-                     occupied_power, parse_args, reject_unported,
-                     resample_stream)
+                     occupied_power, parse_args, resample_stream)
 
 USAGE = """gmskframe_rx -i in.iq [options]
   h : usage              i : input IQ file (required)
@@ -36,7 +35,8 @@ USAGE = """gmskframe_rx -i in.iq [options]
   e : decode budget (expansion), default 3 (TX prints the needed value)
   --conv : enable convolutional/RS payload FEC decode branches
   --snr/--cfo/--delay/--seed : virtual channel impairments
-  (--soft is not supported by the PyTorch port yet)
+  --soft : soft-decision (LLR) decode: exact-ML Golay header, soft
+          Viterbi for conv payload FECs
 """
 
 
@@ -48,7 +48,6 @@ def main(argv=None) -> int:
     if "h" in flags:
         print(USAGE)
         return 0
-    reject_unported(flags, {"soft": "soft-decision decoding"})
     path = flags.get("i")
     if not path:
         print(USAGE)
@@ -68,6 +67,7 @@ def main(argv=None) -> int:
                              max_payload=int(flags.get("p", 1024)),
                              max_frames=4,
                              enable_conv="conv" in flags,
+                             soft="soft" in flags,
                              expansion=int(flags.get("e", EXPANSION)))
     stats = RxStats()
     snrs = []

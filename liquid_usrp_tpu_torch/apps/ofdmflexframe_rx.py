@@ -4,8 +4,8 @@ Port of ``liquid_usrp_tpu/apps/ofdmflexframe_rx.py`` (same flags): a line
 per frame (RSSI, EVM, CFO, header and payload status), then the aggregate
 stats.  Runs on the first CUDA device (``LIQUID_USRP_TORCH_DEVICE=cpu``
 asks for the CPU).  ``--conv`` adds the convolutional and Reed-Solomon
-payload FEC branches; ``--soft`` needs the soft decoder, which is not
-ported yet: it is rejected with an error.
+payload FEC branches; ``--soft`` decodes from soft-decision LLRs: exact-ML
+Golay headers and soft Viterbi payloads.
 
     python -m liquid_usrp_tpu_torch.apps.ofdmflexframe_rx -i tx.iq
 """
@@ -20,8 +20,7 @@ import torch
 from ..framing.payload import EXPANSION
 from ..io.streams import read_iq
 from ..models.ofdmtxrx import OfdmTxRx
-from .common import (RxStats, apply_channel, occupied_power, parse_args,
-                     reject_unported)
+from .common import RxStats, apply_channel, occupied_power, parse_args
 
 USAGE = """ofdmflexframe_rx -i in.iq [options]
   h     : usage
@@ -44,7 +43,8 @@ USAGE = """ofdmflexframe_rx -i in.iq [options]
   e     : decode budget (encoded/decoded expansion), default 3; the
           transmitter prints the value to use for heavy FEC pairs
   --conv : enable convolutional/RS payload FEC decode branches
-  (--soft is not supported by the PyTorch port yet)
+  --soft : soft-decision (LLR) decode: exact-ML Golay header, soft
+          Viterbi for conv payload FECs
 """
 
 
@@ -70,7 +70,6 @@ def main(argv=None) -> int:
     if "h" in flags:
         print(USAGE)
         return 0
-    reject_unported(flags, {"soft": "soft-decision decoding"})
     path = flags.get("i")
     if not path:
         print(USAGE)
@@ -99,7 +98,7 @@ def main(argv=None) -> int:
 
     txrx = OfdmTxRx(M=M, cp_len=cp, taper_len=taper,
                     max_payload=max_payload, callback=callback,
-                    enable_conv="conv" in flags,
+                    enable_conv="conv" in flags, soft="soft" in flags,
                     rx_ingest=flags.get(
                         "ingest", "bf16" if "bf16" in flags else "c64"),
                     expansion=int(flags.get("e", EXPANSION)))

@@ -61,7 +61,7 @@ class FlexSync(NamedTuple):
     dec_max: int
     enc_max: int
     fecs: tuple = payload_codec.PAYLOAD_FECS
-    soft: bool = False         # soft decode (not ported; must be False)
+    soft: bool = False         # soft-decision LLRs into Golay and conv FEC
     header_user: int = FLEX_HEADER_USER   # user-header bytes (static)
 
 
@@ -96,8 +96,6 @@ def make_flex_sync(params: FlexParams, block_size: int = 16384,
                    header_user: int = FLEX_HEADER_USER) -> FlexSync:
     if expansion < 1:
         raise ValueError(f"expansion must be >= 1 (got {expansion})")
-    if soft:
-        raise NotImplementedError("soft-decision decoding is not ported")
     dec_max = max_payload + 4
     enc_max = expansion * dec_max   # see payload.check_budget
     # +1 point: DPSK payloads lead with a phase-reference point
@@ -114,7 +112,7 @@ def make_flex_sync(params: FlexParams, block_size: int = 16384,
                     overlap=max_frame + 32 * params.k + 32,
                     max_slots=max_slots, dec_max=dec_max, enc_max=enc_max,
                     fecs=(payload_codec.PAYLOAD_FECS_FULL if enable_conv
-                          else payload_codec.PAYLOAD_FECS), soft=False,
+                          else payload_codec.PAYLOAD_FECS), soft=bool(soft),
                     header_user=header_user)
 
 
@@ -249,13 +247,20 @@ def _decode_candidate(sync: FlexSync, mf: torch.Tensor, metric: torch.Tensor,
     phi = track_phase_bpsk(y_tr, sgn_known, seg=32, n_iter=2)
     hsyms = hsyms * _cis(-phi[:, PREAMBLE_SYMS:])
     hdec = modem_mod.demodulate(HEADER_MOD, hsyms)
-    hbits = modem_mod.symbols_to_bits(hdec, HEADER_BPS)
-    hbytes = payload_codec.header_bits_to_bytes(hbits,
-                                                user_bytes=sync.header_user)
-    (user, plen, mod, f0, f1, check,
-     hvalid) = payload_codec.decode_header(hbytes, sync.max_payload,
-                                           len(sync.fecs),
-                                           user_bytes=sync.header_user)
+    if sync.soft:
+        # exact-ML Golay from the channel LLRs
+        (user, plen, mod, f0, f1, check,
+         hvalid) = payload_codec.decode_header_points_soft(
+            hsyms, sync.max_payload, len(sync.fecs),
+            user_bytes=sync.header_user)
+    else:
+        hbits = modem_mod.symbols_to_bits(hdec, HEADER_BPS)
+        hbytes = payload_codec.header_bits_to_bytes(
+            hbits, user_bytes=sync.header_user)
+        (user, plen, mod, f0, f1, check,
+         hvalid) = payload_codec.decode_header(hbytes, sync.max_payload,
+                                               len(sync.fecs),
+                                               user_bytes=sync.header_user)
     hevm = modem_mod.evm(HEADER_MOD, hsyms, hdec)
 
     # payload section with a pilot-anchored phase line
@@ -356,7 +361,9 @@ def _gated_decode(sync: FlexSync, mf, metric, gate: bool, row_of, locs,
                 z(f32))
     (user, points, plen, mod, f0, f1, check, hvalid, rssi, hevm,
      cfo) = _decode_candidate(sync, mf, metric, row_of, locs, c1_at, c2_at)
-    payload, pvalid = payload_codec.decode_payload_batch(
+    decode_fn = (payload_codec.decode_payload_batch_soft if sync.soft
+                 else payload_codec.decode_payload_batch)
+    payload, pvalid = decode_fn(
         sync.enc_max, sync.dec_max, sync.max_payload, points, mod, f0, f1,
         check, plen, hvalid, sync.fecs)
     # frame EVM = header + payload symbols (framesyncstats)

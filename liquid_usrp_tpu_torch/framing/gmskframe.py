@@ -244,7 +244,7 @@ class GmskSync(NamedTuple):
     dec_max: int
     enc_max: int
     fecs: tuple = payload_codec.PAYLOAD_FECS
-    soft: bool = False       # soft decode (not ported; must be False)
+    soft: bool = False       # soft-decision LLRs into Golay and conv FEC
 
 
 class GmskSyncState(NamedTuple):
@@ -259,8 +259,6 @@ def make_gmsk_sync(params: GmskParams, block_size: int = 16384,
                    expansion: int = _EXPANSION) -> GmskSync:
     if expansion < 1:
         raise ValueError(f"expansion must be >= 1 (got {expansion})")
-    if soft:
-        raise NotImplementedError("soft-decision decoding is not ported")
     dec_max = max_payload + 4
     enc_max = expansion * dec_max   # see payload.check_budget
     max_bits = (payload_codec.HEADER_ENC_BYTES + enc_max) * 8
@@ -274,7 +272,7 @@ def make_gmsk_sync(params: GmskParams, block_size: int = 16384,
                     max_payload=max_payload, max_frames=max_frames,
                     threshold=threshold, overlap=max_frame + 24 * params.k,
                     max_bits=max_bits, dec_max=dec_max, enc_max=enc_max,
-                    fecs=fecs, soft=False)
+                    fecs=fecs, soft=bool(soft))
 
 
 def gmsk_sync_init(sync: GmskSync, device=None) -> GmskSyncState:
@@ -468,12 +466,18 @@ def _decode_candidates(sync: GmskSync, z, metric, ext, row_of, n0):
     pts = (samp / amp[:, None]).to(torch.complex64)   # pseudo-BPSK points
     data = pts[:, n_t:]
     nh = payload_codec.HEADER_ENC_BYTES * 8
-    hbits = modem_mod.demodulate(modem_mod.MOD_BPSK,
-                                 data[:, :nh]).to(torch.uint8)
-    (user, plen, mod_f, f0, f1, check,
-     hvalid) = payload_codec.decode_header(
-        payload_codec.header_bits_to_bytes(hbits), sync.max_payload,
-        len(sync.fecs))
+    if sync.soft:
+        # exact-ML Golay from the LLRs of the BPSK pseudo-points
+        (user, plen, mod_f, f0, f1, check,
+         hvalid) = payload_codec.decode_header_points_soft(
+            data[:, :nh], sync.max_payload, len(sync.fecs))
+    else:
+        hbits = modem_mod.demodulate(modem_mod.MOD_BPSK,
+                                     data[:, :nh]).to(torch.uint8)
+        (user, plen, mod_f, f0, f1, check,
+         hvalid) = payload_codec.decode_header(
+            payload_codec.header_bits_to_bytes(hbits), sync.max_payload,
+            len(sync.fecs))
     snr_est = 10.0 * torch.log10(torch.clamp(
         amp ** 2 / torch.clamp(((samp[:, :n_t] - amp[:, None] * sgn) ** 2)
                                .mean(-1), min=1e-9), min=1e-9))
@@ -505,7 +509,9 @@ def _gated_decode(sync: GmskSync, z, metric, ext, gate: bool, row_of,
     # GMSK payload is 1 bit/symbol regardless of the header mod field
     mod_bpsk = torch.full((R,), modem_mod.MOD_BPSK, dtype=torch.int32,
                           device=dev)
-    payload, pvalid = payload_codec.decode_payload_batch(
+    decode_fn = (payload_codec.decode_payload_batch_soft if sync.soft
+                 else payload_codec.decode_payload_batch)
+    payload, pvalid = decode_fn(
         sync.enc_max, sync.dec_max, sync.max_payload, ppts, mod_bpsk, f0, f1,
         check, plen, hvalid, sync.fecs)
     return (user, payload, plen, mod_f, f0, f1, check, hvalid, pvalid, rssi,

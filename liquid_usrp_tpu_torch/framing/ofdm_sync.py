@@ -63,7 +63,7 @@ class OfdmSync(NamedTuple):
     dec_max: int               # payload + max CRC bytes
     enc_max: int               # encoded payload buffer bytes
     fecs: tuple = PAYLOAD_FECS # runtime-decodable payload FEC set
-    soft: bool = False         # soft decode (not ported; must be False)
+    soft: bool = False         # soft-decision LLRs into Golay and conv FEC
     use_pallas: int = 0        # detect kernel level: 0, 1 or 2 (B1-B3)
     xcorr_detect: bool = True  # segmented S0 xcorr metric (vs Schmidl-Cox)
     iter_header: bool = True   # second header decode on the DD channel
@@ -100,8 +100,6 @@ def make_sync(params: OfdmParams, block_size: int = 16384,
               expansion: int = _EXPANSION) -> OfdmSync:
     if expansion < 1:
         raise ValueError(f"expansion must be >= 1 (got {expansion})")
-    if soft:
-        raise NotImplementedError("soft-decision decoding is not ported")
     M, cp = params.M, params.cp_len
     n_data = len(params.data_idx)
     dec_max = max_payload + 4
@@ -118,7 +116,7 @@ def make_sync(params: OfdmParams, block_size: int = 16384,
                     threshold=threshold, overlap=overlap, max_psym=max_psym,
                     dec_max=dec_max, enc_max=enc_max,
                     fecs=PAYLOAD_FECS_FULL if enable_conv else PAYLOAD_FECS,
-                    soft=False, use_pallas=int(use_pallas),
+                    soft=bool(soft), use_pallas=int(use_pallas),
                     xcorr_detect=bool(xcorr_detect),
                     iter_header=bool(iter_header))
 
@@ -379,7 +377,14 @@ def _equalized_symbols(sync: OfdmSync, tables: SyncTables, w: torch.Tensor,
 
 
 def _demod_header(sync: OfdmSync, hflat: torch.Tensor):
+    """Header points ``[R, HEADER_SYMS]`` -> (hard symbols, header fields):
+    hard Golay from the symbols, or with ``sync.soft`` exact-ML Golay from
+    the channel LLRs.  The hard symbols drive the header EVM and the
+    decision-directed channel refinement either way."""
     hsym = modem_mod.demodulate(_HEADER_MOD, hflat)
+    if sync.soft:
+        return hsym, payload_codec.decode_header_points_soft(
+            hflat, sync.max_payload, len(sync.fecs))
     hbits = modem_mod.symbols_to_bits(hsym, _HEADER_BPS)
     fields = payload_codec.decode_header(
         payload_codec.header_bits_to_bytes(hbits), sync.max_payload,
@@ -536,7 +541,9 @@ def _gated_decode(sync: OfdmSync, tables: SyncTables, source: torch.Tensor,
     win = _window_gather(source, row_of, locs, sync.overlap)
     (user, points, plen, mod, f0, f1, check, hvalid, rssi, hevm,
      cfo) = _decode_window(sync, tables, win, c_at)
-    payload, pvalid = payload_codec.decode_payload_batch(
+    decode_fn = (payload_codec.decode_payload_batch_soft if sync.soft
+                 else payload_codec.decode_payload_batch)
+    payload, pvalid = decode_fn(
         sync.enc_max, sync.dec_max, sync.max_payload, points, mod, f0, f1,
         check, plen, hvalid, sync.fecs)
     used = payload_codec.payload_points_used(

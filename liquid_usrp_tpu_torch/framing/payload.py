@@ -1,4 +1,4 @@
-"""Shared payload/header codec (hard-decision path).
+"""Shared payload/header codec (hard- and soft-decision paths).
 
 Port of ``liquid_usrp_tpu/framing/payload.py``: the static header codec
 (Golay(24,12) + CRC16 + PN scramble) and the runtime-property payload
@@ -16,7 +16,10 @@ Exactness rules carried over from the JAX code:
 
 The convolutional and RS schemes (``PAYLOAD_FECS_FULL``) decode in the
 batched path only for the rows whose header is valid (see
-:func:`_fec_batch`); the soft-decision path is not ported.
+:func:`_fec_batch`).  The soft-decision path (:func:`generic_demod_soft`,
+:func:`decode_header_soft`, :func:`decode_payload_batch_soft`) feeds
+max-log bit LLRs to the exact-ML Golay header decoder and to the soft
+Viterbi of the convolutional payload codes.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ __all__ = [
     "required_expansion", "diff_encode_points", "generic_demod_bits",
     "crc_check_dynamic", "payload_points_used", "payload_evm_mse",
     "frame_evm_db", "fec_decode_switch", "decode_payload",
-    "decode_payload_batch",
+    "decode_payload_batch", "generic_demod_soft", "decode_header_soft",
+    "decode_header_points_soft", "decode_payload_batch_soft",
 ]
 
 PAYLOAD_FECS = (
@@ -93,6 +97,14 @@ def _scramble_np(n: int, salt: int) -> np.ndarray:
     return rng.integers(0, 256, size=n, dtype=np.uint8)
 
 
+@functools.lru_cache(maxsize=None)
+def _pn_signs(n: int, salt: int) -> np.ndarray:
+    """float32 ``[n*8]``: -1 where a bit of the PN sequence is 1, else 1
+    (descrambles an LLR stream by sign flips)."""
+    bits = np.unpackbits(_scramble_np(n, salt)).astype(np.float32)
+    return 1.0 - 2.0 * bits
+
+
 def scramble(data: torch.Tensor, salt: int = 0) -> torch.Tensor:
     """XOR with the PN sequence (involutive)."""
     return data ^ on(_scramble_np(data.shape[-1], salt), data.device)
@@ -134,6 +146,41 @@ def decode_header(hbytes: torch.Tensor, max_payload: int,
     dec = fec_mod.fec_decode(HEADER_FEC, scramble(hbytes, salt=1),
                              header_dec_bytes(user_bytes))
     return _header_fields(dec, max_payload, n_fecs, user_bytes)
+
+
+def decode_header_soft(hllrs: torch.Tensor, max_payload: int,
+                       n_fecs: int = len(PAYLOAD_FECS),
+                       user_bytes: int = HEADER_USER_BYTES):
+    """Soft-decision header decode from channel bit LLRs ``[..., >=
+    enc*8]`` (positive => bit 1, the :func:`generic_demod_soft` layout):
+    the scrambler is undone by flipping each LLR's sign where its PN bit
+    is 1, then every Golay(24,12) block is decoded exact-ML against all
+    4096 codewords (``fec.golay_decode_soft``).  Same returns as
+    :func:`decode_header`."""
+    enc_b = header_enc_bytes(user_bytes)
+    dec_b = header_dec_bytes(user_bytes)
+    need = enc_b * 8
+    L = hllrs[..., :need] * on(_pn_signs(enc_b, 1), hllrs.device)
+    nblocks = -(-(dec_b * 8) // 12)
+    lead = L.shape[:-1]
+    mbits = fec_mod.golay_decode_soft(
+        L[..., :nblocks * 24].reshape(*lead, nblocks, 24))
+    dec = pack_bits(mbits.reshape(*lead, nblocks * 12)[..., :dec_b * 8])
+    return _header_fields(dec, max_payload, n_fecs, user_bytes)
+
+
+def decode_header_points_soft(hpts: torch.Tensor, max_payload: int,
+                              n_fecs: int = len(PAYLOAD_FECS),
+                              user_bytes: int = HEADER_USER_BYTES):
+    """Soft header decode of equalized BPSK header points ``[R, >= enc*8]``
+    (one point a bit): their LLRs (:func:`generic_demod_soft` on a 16-entry
+    table, which holds BPSK: the padding never wins a minimum) through
+    :func:`decode_header_soft`."""
+    mod = torch.full(hpts.shape[:1], HEADER_MOD, dtype=torch.int32,
+                     device=hpts.device)
+    hllrs = generic_demod_soft(hpts, mod, header_enc_bytes(user_bytes) * 8,
+                               n_table=16)
+    return decode_header_soft(hllrs, max_payload, n_fecs, user_bytes)
 
 
 def _header_fields(dec: torch.Tensor, max_payload: int, n_fecs: int,
@@ -290,6 +337,64 @@ def generic_demod_bits(x: torch.Tensor, mod: torch.Tensor, max_bits: int,
     return _bits_from_syms(sym, off, bps, max_bits), bps
 
 
+@functools.lru_cache(maxsize=None)
+def _bit_masks() -> np.ndarray:
+    """[n_schemes, 256, 8] bit of each constellation index, MSB-first per
+    scheme (slot k = bit (bps-1-k)); zero beyond bps."""
+    out = np.zeros((len(PAYLOAD_MODS), _MAX_CONST, 8), dtype=np.float32)
+    for s in PAYLOAD_MODS:
+        bps = modem_mod.bits_per_symbol(s)
+        M = 1 << bps
+        for c in range(M):
+            for k in range(bps):
+                out[s, c, k] = (c >> (bps - 1 - k)) & 1
+    return out
+
+
+_SOFT_INF = 1e12      # the JAX package's "no such point" distance
+
+
+def generic_demod_soft(x: torch.Tensor, mod: torch.Tensor, max_bits: int,
+                       n_table: int = _MAX_CONST) -> torch.Tensor:
+    """Max-log per-bit LLRs for per-row schemes: points ``[K, n]``, schemes
+    ``[K]`` -> float32 ``[K, max_bits]`` laid out like
+    :func:`generic_demod_bits` (positive => bit 1): ``llr[j] =
+    llr_pts[j // bps + off, j % bps]``, zeros past the end of the stream.
+
+    The per-bit minima run over the padded table in chunks of 16 entries,
+    each chunk one ``[K, n, 16]`` distance tile and its masked ``[K, n, 16,
+    8]`` form reduced at once: the unchunked ``[K, n, 256, 8]`` at a
+    flexframe dispatch (32 x 52,533 points) would be 13.8 GB.  Padding
+    entries sit at ``1e6+0j`` and a bit with no candidate reads 1e12, as in
+    JAX, so the padded LLR slots equal JAX's.  ``n_table`` truncates the
+    table (exact whenever the scheme fits)."""
+    x, off = _diff_effective(x, mod)
+    m = mod.to(torch.int64)
+    dev = x.device
+    table = on(_stacked_tables(), dev)[m][..., :n_table]          # [K, C]
+    is1 = on(_bit_masks(), dev)[m][..., :n_table, :] > 0.5       # [K, C, 8]
+    xr, xi = x.real[..., None], x.imag[..., None]
+    inf = torch.tensor(_SOFT_INF, dtype=torch.float32, device=dev)
+    d0 = torch.full((*x.shape, 8), _SOFT_INF, dtype=torch.float32,
+                    device=dev)
+    d1 = d0.clone()
+    for c0 in range(0, table.shape[-1], _DEMOD_CHUNK):
+        c1 = c0 + _DEMOD_CHUNK
+        d = ((xr - table.real[..., None, c0:c1]) ** 2 +
+             (xi - table.imag[..., None, c0:c1]) ** 2)[..., None]
+        b = is1[:, None, c0:c1, :]                    # [K, 1, ck, 8]
+        d0 = torch.minimum(d0, torch.where(b, inf, d).amin(-2))
+        d1 = torch.minimum(d1, torch.where(b, d, inf).amin(-2))
+    llr_pts = (d0 - d1).reshape(x.shape[0], -1)       # [K, n * 8]
+    n = x.shape[-1]
+    j = torch.arange(max_bits, device=dev)
+    bps = on(_BPS, dev)[m][..., None]
+    src = j // bps + torch.clamp(off, 0, 1)[..., None]
+    idx = torch.clamp(src, max=n - 1) * 8 + j % bps
+    vals = torch.gather(llr_pts, -1, idx)
+    return torch.where(src < n, vals, torch.zeros_like(vals))
+
+
 def crc_check_dynamic(check: torch.Tensor, buf: torch.Tensor,
                       plen: torch.Tensor) -> torch.Tensor:
     """Validate CRC over ``buf[:plen]`` against ``buf[plen:plen+w]`` per
@@ -415,7 +520,8 @@ def decode_payload(sync_enc_max: int, dec_max: int, max_payload: int,
 
 
 def _fec_batch(scheme_ids: torch.Tensor, bufs: torch.Tensor, out_bytes: int,
-               fecs, rows: torch.Tensor = None) -> torch.Tensor:
+               fecs, rows: torch.Tensor = None, llrs: torch.Tensor = None,
+               llr_ok: torch.Tensor = None) -> torch.Tensor:
     """Batched FEC decode ``bufs [K, in]`` with per-row scheme indices.
 
     A block-code scheme decodes the whole batch once and a masked select
@@ -423,7 +529,13 @@ def _fec_batch(scheme_ids: torch.Tensor, bufs: torch.Tensor, out_bytes: int,
     only the rows that carry it (one host read of the ids) and leaves the
     others; ``rows`` (bool ``[K]``, default all) narrows that to the rows
     whose result is used, and the conv/RS bytes of the other rows are then
-    zeros where JAX decodes them anyway."""
+    zeros where JAX decodes them anyway.
+
+    With ``llrs`` (float ``[K, >= in*8]``, descrambled channel LLRs of
+    ``bufs``) the convolutional schemes decode soft.  ``llr_ok`` (bool
+    ``[K]``) marks the rows whose ``llrs`` are a view of ``bufs``; the other
+    rows decode their hard bits as ±1 pseudo-LLRs, which the soft Viterbi
+    treats as a hard decode.  Block codes and RS decode hard."""
     dev = bufs.device
     out = torch.zeros((bufs.shape[0], out_bytes), dtype=torch.uint8,
                       device=dev)
@@ -436,9 +548,20 @@ def _fec_batch(scheme_ids: torch.Tensor, bufs: torch.Tensor, out_bytes: int,
     for idx, s in enumerate(fecs):
         if _is_heavy(s):
             pick = np.nonzero(sel == idx)[0]
-            if len(pick):
-                pick = torch.as_tensor(pick, device=dev)
+            if not len(pick):
+                continue
+            pick = torch.as_tensor(pick, device=dev)
+            if llrs is None or not fec_mod._is_conv(s):
                 out[pick] = _decode_fit(s, bufs[pick], out_bytes)
+                continue
+            from ..ops import conv as conv_mod
+            n = _fit_bytes(s, out_bytes, bufs.shape[-1])
+            need = fec_mod.encoded_length(s, n)
+            L = llrs[pick, :need * 8]
+            if llr_ok is not None:
+                bits = unpack_bits(bufs[pick, :need]).to(torch.float32)
+                L = torch.where(llr_ok[pick, None], L, 2.0 * bits - 1.0)
+            out[pick, :n] = conv_mod.conv_decode_soft(s, L, n)
             continue
         out = torch.where((scheme_ids == idx)[:, None],
                           _decode_fit(s, bufs, out_bytes), out)
@@ -450,14 +573,48 @@ def decode_payload_batch(sync_enc_max: int, dec_max: int, max_payload: int,
                          hvalid, fecs=PAYLOAD_FECS):
     """Batched payload decode for K candidates: ``points [K, n_pts]``,
     per-row props -> (payload [K, max_payload] uint8, payload_valid [K])."""
+    return _decode_payload_rows(sync_enc_max, dec_max, max_payload, points,
+                                mod, f0, f1, check, plen, hvalid, fecs,
+                                soft=False)
+
+
+def decode_payload_batch_soft(sync_enc_max: int, dec_max: int,
+                              max_payload: int, points: torch.Tensor, mod,
+                              f0, f1, check, plen, hvalid,
+                              fecs=PAYLOAD_FECS):
+    """:func:`decode_payload_batch` with soft LLRs into the convolutional
+    branches: the points are demapped once to LLRs
+    (:func:`generic_demod_soft`), whose signs give the hard bytes for the
+    block codes and RS, and whose descrambled values (sign flipped where
+    the scramble PN bit is 1) drive the soft Viterbi.  The outer stage
+    (``fec1``) sees the channel LLRs; the inner (``fec0``) sees them only
+    where ``fec1`` is none, since after a real outer decode they no longer
+    describe its input, and decodes the other rows from ``fec1``'s hard
+    output.  The same host reads as the hard path: the table-size gate and
+    the scheme ids of each FEC stage."""
+    return _decode_payload_rows(sync_enc_max, dec_max, max_payload, points,
+                                mod, f0, f1, check, plen, hvalid, fecs,
+                                soft=True)
+
+
+def _decode_payload_rows(sync_enc_max, dec_max, max_payload, points, mod,
+                         f0, f1, check, plen, hvalid, fecs, soft: bool):
     bps_all = on(_BPS, points.device)[mod.to(torch.int64)]
     # host-side table-size gate (a device sync): 64 entries cover every
     # scheme with bps <= 6; entries past 2^bps are padding and never win
     n_tab = 64 if bool((bps_all <= 6).all()) else _MAX_CONST
-    pbits, _ = generic_demod_bits(points, mod, sync_enc_max * 8, n_tab)
+    llr_desc = llr_ok = None
+    if soft:
+        llrs = generic_demod_soft(points, mod, sync_enc_max * 8, n_tab)
+        pbits = (llrs > 0).to(torch.uint8)
+        llr_desc = llrs * on(_pn_signs(sync_enc_max, 2), points.device)
+        llr_ok = f1 == fec_mod.FEC_NONE
+    else:
+        pbits, _ = generic_demod_bits(points, mod, sync_enc_max * 8, n_tab)
     enc = scramble(pack_bits(pbits), salt=2)
-    mid = _fec_batch(f1, enc, sync_enc_max, fecs, rows=hvalid)
-    dec = _fec_batch(f0, mid, dec_max, fecs, rows=hvalid)
+    mid = _fec_batch(f1, enc, sync_enc_max, fecs, rows=hvalid, llrs=llr_desc)
+    dec = _fec_batch(f0, mid, dec_max, fecs, rows=hvalid, llrs=llr_desc,
+                     llr_ok=llr_ok)
     pvalid = hvalid & crc_check_dynamic(check, dec, plen)
     keep = torch.arange(max_payload, device=points.device)[None, :] < \
         plen[:, None]

@@ -239,13 +239,14 @@ class MultichannelRx:
 
     def __init__(self, num_channels: int, M: int = 48, cp_len: int = 6,
                  taper_len: int = 4, callback=None, block_size: int = 4096,
-                 max_payload: int = 1024,
+                 max_payload: int = 1024, enable_conv: bool = False,
+                 soft: bool = False,
                  expansion: int = payload_codec.EXPANSION, device=None):
         self.num_channels = num_channels
         self.params = ofdm.make_ofdm_params(M, cp_len, taper_len)
         self.sync = ofdm_sync.make_sync(
             self.params, block_size=block_size, max_payload=max_payload,
-            expansion=expansion)
+            enable_conv=enable_conv, soft=soft, expansion=expansion)
         self.callback = callback
         self.rx = Mcrx(num_channels, self.sync, None, device)
         self._state = self.rx.init_state()

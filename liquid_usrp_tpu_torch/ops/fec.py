@@ -8,7 +8,8 @@ rep3/5, Hamming(7,4)/(8,4)/(12,8), Golay(24,12), SEC-DED(22,16)/(39,32)/
 and the punctured v27/v29 variants) and RS(255,223) (``ops/rs.py``).
 Scheme ids and names equal the JAX package's.  The NumPy functions that
 build the tables are copied verbatim, so the tables are equal by
-construction (the tests compare them).  The soft Golay decoder is not ported yet.
+construction (the tests compare them).  ``golay_decode_soft`` is the
+exact maximum-likelihood soft decoder of Golay(24,12) for the soft header.
 
 Layout: messages are encoded MSB-first; the bit stream is chopped into
 ``k``-bit blocks (zero-padded at the end), each block maps to ``n`` coded
@@ -33,7 +34,7 @@ __all__ = [
     "FEC_SECDED2216", "FEC_SECDED3932", "FEC_SECDED7264",
     "FEC_CONV_V27", "FEC_CONV_V29", "FEC_RS8",
     "fec_names", "fec_from_name", "fec_name",
-    "encoded_length", "fec_encode", "fec_decode",
+    "encoded_length", "fec_encode", "fec_decode", "golay_decode_soft",
 ]
 
 FEC_NONE = 0
@@ -273,6 +274,46 @@ def fec_encode(scheme: int, data: torch.Tensor) -> torch.Tensor:
     if pad2:
         flat = torch.nn.functional.pad(flat, (0, pad2))
     return pack_bits(flat)
+
+
+@functools.lru_cache(maxsize=None)
+def _golay_codewords_pm1() -> np.ndarray:
+    """All 4096 Golay(24,12) codewords as ±1 rows ``[4096, 24]``."""
+    c = _block_code(FEC_GOLAY2412)
+    msgs = np.arange(1 << 12, dtype=np.uint32)
+    mbits = ((msgs[:, None] >> np.arange(11, -1, -1)) & 1).astype(np.uint8)
+    cw = (mbits @ c.G) % 2
+    return (2.0 * cw - 1.0).astype(np.float32)
+
+
+def _golay_scores(llr_blocks: torch.Tensor) -> torch.Tensor:
+    """Codeword correlations ``llr [..., 24] @ cw.T`` -> float64
+    ``[..., 4096]``.
+
+    The product runs in float64.  Each term is a float32 LLR times ±1, so
+    the sum is exact unless one block's LLRs span more than 2^24 in
+    magnitude, and no setting of the process touches it: TF32
+    (``torch.backends.cuda.matmul.allow_tf32``) and
+    ``torch.set_float32_matmul_precision`` act on float32 matmuls only.
+    At TF32 the card would round the LLRs to 10-bit mantissas and flip the
+    argmax on near-ties."""
+    cw = on(_golay_codewords_pm1(), llr_blocks.device, torch.float64)
+    return llr_blocks.to(torch.float64) @ cw.T
+
+
+def golay_decode_soft(llr_blocks: torch.Tensor) -> torch.Tensor:
+    """Exact maximum-likelihood soft decode of Golay(24,12).
+
+    ``llr_blocks [..., 24]`` float LLRs (positive => bit 1) -> message bits
+    ``[..., 12]`` uint8: the argmax (first maximum on ties, as
+    ``jnp.argmax``) over the correlations with all 4096 ±1 codewords, one
+    dense ``[..., 24] @ [24, 4096]`` product in float64
+    (:func:`_golay_scores`).  The JAX package sums in float32, so the two
+    agree except on blocks whose two best scores lie within float32
+    rounding of each other."""
+    best = torch.argmax(_golay_scores(llr_blocks), dim=-1)
+    shifts = torch.arange(11, -1, -1, device=llr_blocks.device)
+    return ((best[..., None] >> shifts) & 1).to(torch.uint8)
 
 
 def fec_decode(scheme: int, coded: torch.Tensor, n_bytes: int

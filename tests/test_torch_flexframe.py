@@ -318,12 +318,16 @@ def test_candidates_near_the_window_end_are_clamped():
 
 
 def test_unported_options_raise():
-    """``soft=True`` raises until the soft path is ported; ``enable_conv``
+    """``soft=True`` gives JAX's soft sync config (the soft decode itself
+    is held to JAX's in ``test_torch_soft_sync.py``); ``enable_conv``
     takes JAX's extended scheme set (the conv/RS decode itself is held to
-    JAX's in ``test_torch_conv_rs.py``)."""
+    JAX's in ``test_torch_conv_rs.py``); a zero budget raises."""
     p = tff.make_flex_params()
-    with pytest.raises(NotImplementedError):
-        tfs.make_flex_sync(p, soft=True)
+    soft = tfs.make_flex_sync(p, enable_conv=True, soft=True)
+    assert soft.soft is True
+    assert soft._replace(params=None) == jfs.make_flex_sync(
+        jff.make_flex_params(), enable_conv=True,
+        soft=True)._replace(params=None)
     conv = tfs.make_flex_sync(p, enable_conv=True)
     assert conv.fecs == jfs.make_flex_sync(jff.make_flex_params(),
                                            enable_conv=True).fecs
@@ -337,10 +341,10 @@ def _count(out: str, what: str) -> int:
 
 
 def test_flexframe_and_packet_apps(cpu_env, tmp_path, capsys):
-    """TX -> RX loopbacks of both CLI pairs (through ``--snr/--cfo``, and
-    a v27 payload through ``--conv``); ``packet_rx`` counts a valid burst
-    of another format as foreign; unported and unknown flags exit 1; ``-h``
-    prints the usage."""
+    """TX -> RX loopbacks of both CLI pairs (through ``--snr/--cfo`` and
+    ``--soft``, and a v27 payload through ``--conv``); ``packet_rx`` counts
+    a valid burst of another format as foreign; unknown flags exit 1;
+    ``-h`` prints the usage."""
     iq = str(tmp_path / "ff.iq")
     assert flexframe_tx.main(["-o", iq, "-N", "3", "-P", "100"]) == 0
     assert flexframe_rx.main(["-i", iq, "-p", "256", "--snr", "20",
@@ -363,10 +367,12 @@ def test_flexframe_and_packet_apps(cpu_env, tmp_path, capsys):
     assert _count(out, "valid packets") == 4
     assert _count(out, "non-frame64 bursts") == 1
     assert "non-frame64 burst ignored (len=32)" in out
-    for argv in (["-i", iq, "--soft"], ["-Z"]):
-        with pytest.raises(SystemExit) as exc:
-            flexframe_rx.main(argv)
-        assert exc.value.code == 1
+    capsys.readouterr()
+    assert flexframe_rx.main(["-i", iq, "-q", "-p", "256", "--soft"]) == 0
+    assert _count(capsys.readouterr().out, "valid packets") == 3
+    with pytest.raises(SystemExit) as exc:
+        flexframe_rx.main(["-Z"])
+    assert exc.value.code == 1
     capsys.readouterr()
     assert flexframe_tx.main(["-o", iq, "-N", "2", "-P", "40", "-c", "v27",
                               "-k", "none"]) == 0

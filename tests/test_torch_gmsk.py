@@ -146,12 +146,12 @@ def test_params_and_tables_equal_jax():
             assert tg.gmsk_frame_length(tg.make_gmsk_params(), _props(kind),
                                         n) == jg.gmsk_frame_length(
                 jg.make_gmsk_params(), _jprops(_props(kind)), n)
-    for kw in (dict(), dict(enable_conv=True), dict(expansion=5)):
+    for kw in (dict(), dict(enable_conv=True), dict(expansion=5),
+               dict(enable_conv=True, soft=True)):
         a = tg.make_gmsk_sync(tg.make_gmsk_params(), **kw)
         b = jg.make_gmsk_sync(jg.make_gmsk_params(), **kw)
         assert a._replace(params=None) == b._replace(params=None)
-    with pytest.raises(NotImplementedError):
-        tg.make_gmsk_sync(tg.make_gmsk_params(), soft=True)
+    assert tg.make_gmsk_sync(tg.make_gmsk_params(), soft=True).soft is True
     with pytest.raises(ValueError):
         tg.make_gmsk_sync(tg.make_gmsk_params(), expansion=0)
 
@@ -348,8 +348,9 @@ def _count(out: str, what: str) -> int:
 
 def test_gmskframe_apps(cpu_env, tmp_path, capsys):
     """The TX -> RX pair at ``-N 2 -P 100``, ``-p 256 --snr 22``: 2/2 valid
-    and a PER line; the same with a v27 payload through ``--conv``;
-    ``--soft`` and unknown flags exit 1; ``-h`` prints the usage."""
+    and a PER line; the same with a v27 payload through ``--conv``; the
+    output rate chain, also through ``--soft``; unknown flags exit 1;
+    ``-h`` prints the usage."""
     iq = str(tmp_path / "g.iq")
     assert gmskframe_tx.main(["-o", iq, "-N", "2", "-P", "100"]) == 0
     assert gmskframe_rx.main(["-i", iq, "-p", "256", "--snr", "22"]) == 0
@@ -368,10 +369,12 @@ def test_gmskframe_apps(cpu_env, tmp_path, capsys):
     assert gmskframe_rx.main(["-i", iq, "-p", "128", "-r", "0.5",
                               "-q"]) == 0
     assert _count(capsys.readouterr().out, "valid packets") == 2
-    for argv in (["-i", iq, "--soft"], ["-Z"]):
-        with pytest.raises(SystemExit) as exc:
-            gmskframe_rx.main(argv)
-        assert exc.value.code == 1
+    assert gmskframe_rx.main(["-i", iq, "-p", "128", "-r", "0.5", "-q",
+                              "--soft"]) == 0
+    assert _count(capsys.readouterr().out, "valid packets") == 2
+    with pytest.raises(SystemExit) as exc:
+        gmskframe_rx.main(["-Z"])
+    assert exc.value.code == 1
     assert gmskframe_tx.main(["-o", iq, "-c", "nope"]) == 1
     capsys.readouterr()
     for mod in (gmskframe_tx, gmskframe_rx):

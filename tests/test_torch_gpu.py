@@ -30,6 +30,12 @@ offsets, ``mf`` within 1e-5 of max |mf| and the metric within 1e-4 where
 the window energy is at least 100x the silence floor; ``msresamp_block`` with equal counts and
 outputs within 1e-5 of max |y|; the batched sync decoding every frame, and
 candidates past a window's end reading clamped indices.
+
+The soft decode path and the measurement ops run no kernel either: soft
+LLRs within 1e-6 of max |LLR| of the CPU's with equal signs beyond, Golay
+ML equal to the CPU except near-ties and unchanged at any float32 matmul
+precision, the soft payload decode equal on header-valid rows, AGC within
+a relative 1e-5, the spectrogram within 1e-3 dB, ring logs equal.
 """
 import numpy as np
 import pytest
@@ -412,3 +418,132 @@ def test_flex_sync_on_the_card_and_clamped_candidates(cuda, flex_stream):
                                fs._row_gather(c2, row_of, locs))
     torch.cuda.synchronize()
     assert out[0].shape == (4, sync.header_user)
+
+
+# ---------------------------------------------------------------------------
+# the soft decode path and the measurement ops (no kernel): card vs CPU
+# ---------------------------------------------------------------------------
+
+def _llr_close(got, want, rtol=1e-6):
+    tol = rtol * max(float(want.abs().max()), 1.0)
+    assert float((got - want).abs().max()) <= tol
+    sure = want.abs() > tol
+    assert torch.equal(torch.sign(got[sure]), torch.sign(want[sure]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_table,scheme", [(64, "qpsk"), (64, "dpsk4"),
+                                            (256, "qam256")])
+def test_generic_demod_soft_cuda_matches_cpu(cuda, n_table, scheme):
+    """LLRs within 1e-6 of max |LLR| of the CPU's, equal signs beyond."""
+    from liquid_usrp_tpu_torch.framing import payload as pc
+    from liquid_usrp_tpu_torch.ops import modem
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor((rng.normal(size=(6, 3001)) + 1j *
+                         rng.normal(size=(6, 3001))).astype(np.complex64))
+    mod = torch.full((6,), modem.mod_from_name(scheme), dtype=torch.int32)
+    want = pc.generic_demod_soft(x, mod, 3001 * 4, n_table)
+    got = pc.generic_demod_soft(x.to(cuda), mod.to(cuda), 3001 * 4,
+                                n_table).cpu()
+    _llr_close(got, want)
+    d = modem.demodulate_soft(modem.MOD_QAM16, x.to(cuda)).cpu()
+    _llr_close(d, modem.demodulate_soft(modem.MOD_QAM16, x))
+
+
+@pytest.mark.gpu
+def test_golay_soft_cuda_matches_cpu_at_any_matmul_precision(cuda):
+    """The float64 scores do not depend on TF32 or the float32 matmul
+    precision: equal to the CPU except near-ties, and unchanged under
+    ``set_float32_matmul_precision("medium")``."""
+    from liquid_usrp_tpu_torch.ops import fec
+    rng = np.random.default_rng(8)
+    L = torch.as_tensor(rng.normal(size=(4096, 24)).astype(np.float32))
+    want = fec.golay_decode_soft(L)
+    got = fec.golay_decode_soft(L.to(cuda)).cpu()
+    top2 = torch.topk(fec._golay_scores(L), 2).values
+    tie = (top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs().clamp(min=1)
+    assert not ((got != want).any(-1) & ~tie).any()
+    prev = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("medium")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        again = fec.golay_decode_soft(L.to(cuda)).cpu()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_soft_payload_decode_cuda_matches_cpu(cuda):
+    """``decode_payload_batch_soft`` with v27 (channel LLRs and
+    pseudo-LLRs), Golay and none rows: the card equals the CPU on the
+    header-valid rows and decodes every payload."""
+    from liquid_usrp_tpu_torch.framing import ofdm
+    from liquid_usrp_tpu_torch.framing import payload as pc
+    from liquid_usrp_tpu_torch.ops import crc, fec, modem
+    from liquid_usrp_tpu_torch.utils.bits import unpack_bits
+    rng = np.random.default_rng(9)
+    combos = [(fec.FEC_CONV_V27, fec.FEC_NONE),
+              (fec.FEC_CONV_V27, fec.FEC_HAMMING128),
+              (fec.FEC_NONE, fec.FEC_GOLAY2412), (fec.FEC_NONE, fec.FEC_NONE)]
+    plen, enc_max = 64, 3 * 68 * 2
+    P = torch.zeros((len(combos), enc_max * 8 + 1), dtype=torch.complex64)
+    pays = []
+    for r, (f0, f1) in enumerate(combos):
+        props = ofdm.FrameProps(check=crc.CRC_32, fec0=f0, fec1=f1,
+                                mod=modem.MOD_QPSK)
+        pay = rng.integers(0, 256, plen, dtype=np.uint8)
+        bits = unpack_bits(pc.encode_payload(props, torch.as_tensor(pay)))
+        pts = modem.modulate(modem.MOD_QPSK,
+                             modem.bits_to_symbols(bits, 2))
+        pts = pts + torch.as_tensor((0.3 * (rng.normal(size=pts.shape) + 1j
+                                            * rng.normal(size=pts.shape))
+                                     ).astype(np.complex64))
+        P[r, :pts.shape[0]] = pts
+        pays.append(pay)
+
+    def col(i):
+        return torch.tensor([c[i] for c in combos], dtype=torch.int32)
+    args = (torch.full((4,), modem.MOD_QPSK, dtype=torch.int32), col(0),
+            col(1), torch.full((4,), crc.CRC_32, dtype=torch.int32),
+            torch.full((4,), plen, dtype=torch.int32),
+            torch.tensor([True, True, True, False]))
+    want = pc.decode_payload_batch_soft(enc_max, plen + 4, plen, P, *args,
+                                        fecs=pc.PAYLOAD_FECS_FULL)
+    got = pc.decode_payload_batch_soft(
+        enc_max, plen + 4, plen, P.to(cuda), *(a.to(cuda) for a in args),
+        fecs=pc.PAYLOAD_FECS_FULL)
+    got = [v.cpu() for v in got]
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][:3], want[0][:3])
+    assert got[1][:2].all()
+    for r in range(2):
+        assert np.array_equal(got[0][r].numpy(), pays[r])
+
+
+@pytest.mark.gpu
+def test_measurement_ops_cuda_match_cpu(cuda):
+    """AGC within a relative 1e-5 of the CPU, the spectrogram within 1e-3
+    dB with the same peak bins, ring logs equal."""
+    from liquid_usrp_tpu_torch.ops import agc, spectrum, window
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor((np.repeat([0.3, 3.0], 10000) *
+                         (rng.normal(size=20000) + 1j *
+                          rng.normal(size=20000))).astype(np.complex64))
+    outs = [agc.agc_block(agc.agc_init(0.01, device=d), x.to(d))
+            for d in (cuda, "cpu")]
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    sg = spectrum.spectrogram_create(64)
+    got = spectrum.spectrogram_block(sg, x[:19968].to(cuda))
+    want = spectrum.spectrogram_block(sg, x[:19968])
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-3
+    assert torch.equal(got[2].cpu(), want[2])
+    rings = [window.ring_init(1024, device=d) for d in (cuda, "cpu")]
+    for lo, hi in ((0, 700), (700, 900), (900, 5000)):
+        rings = [window.ring_push(r, x[lo:hi].to(r.buf.device))
+                 for r in rings]
+    assert torch.equal(rings[0].buf.cpu(), rings[1].buf)
+    assert int(rings[0].count) == 1024

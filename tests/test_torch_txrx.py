@@ -327,8 +327,9 @@ def test_ofdmflexframe_apps(cpu_env, tmp_path, capsys):
     """The TX -> RX pair decodes every packet; a stream split mid-frame with
     ``--save-state``/``--load-state`` decodes the same packets as one run;
     ``-d`` writes the octave dump; ``--snr/--cfo`` impairments and
-    ``--stream --bf16`` decode; a v27 payload decodes through ``--conv``;
-    unported and unknown flags exit 1; ``-h`` prints the usage."""
+    ``--stream --bf16`` decode; the split stream decodes through
+    ``--soft``; a v27 payload decodes through ``--conv``; unknown flags
+    exit 1; ``-h`` prints the usage."""
     iq = str(tmp_path / "tx.iq")
     assert ofdmflexframe_tx.main(["-o", iq, "-N", "3", "-P", "200"]) == 0
     dbg = str(tmp_path / "dbg")
@@ -367,10 +368,12 @@ def test_ofdmflexframe_apps(cpu_env, tmp_path, capsys):
     b = _packets(capsys.readouterr().out)
     assert full == 12 and a + b == 12 and a > 0
 
-    for argv in (["-i", iq, "--soft"], ["-Z"]):
-        with pytest.raises(SystemExit) as exc:
-            ofdmflexframe_rx.main(argv)
-        assert exc.value.code == 1
+    assert ofdmflexframe_rx.main(["-i", iq, "-q", "-p", "256",
+                                  "--soft"]) == 0
+    assert _packets(capsys.readouterr().out) == 12
+    with pytest.raises(SystemExit) as exc:
+        ofdmflexframe_rx.main(["-Z"])
+    assert exc.value.code == 1
     # a v27 payload through --conv
     assert ofdmflexframe_tx.main(["-o", iq, "-N", "2", "-P", "48", "-c",
                                   "v27", "-k", "none"]) == 0
