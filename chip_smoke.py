@@ -10,7 +10,9 @@ apps), the single-carrier flexframe path (``flexframe_tx/rx``,
 Reed-Solomon FEC layer (``--conv``), the soft-decision decode path
 (``--soft``), and the measurement ops and small CLIs (``rssi``,
 ``asgram_rx``, ``narrowband_tx``, ``halfduplex_txrx``,
-``fullduplex_txrx``):
+``fullduplex_txrx``), the streaming plumbing (``NativeWriter``,
+``run_pipelined``, the TX worker, ``AsyncTxProducer``,
+``multichannel_txrx``) and the 802.11a path (``wlanframe_tx/rx``):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``liquid_usrp_tpu_torch/csrc``;
@@ -152,7 +154,35 @@ Reed-Solomon FEC layer (``--conv``), the soft-decision decode path
    against the CPU's; the Golay ML stage on one
    dispatch's header blocks.  The soft GMSK and flexframe runs and the
    A13 ops launch none of B1-B5; the soft OFDM run and the duplex CLIs
-   launch B1 only, the OFDM detector.
+   launch B1 only, the OFDM detector;
+24. the streaming plumbing at the bench configuration: the mixture of 4
+   written with ``NativeWriter`` (its bytes equal ``write_file``'s) and
+   read back through ``NativeReader`` -> ``BlockPrefetcher`` ->
+   ``run_pipelined`` over ``make_mcrx_step``: 88/88 with ``bench.py``'s
+   fingerprints, the same results as the direct step loop, B1 launched;
+   the TX worker at N=4 (``chunk=256``, ``max_ahead=65536``) with 400-byte
+   packets queued on every channel mid-stream while this thread runs
+   ``MultichannelRx`` on the card: every frame payload-exact, at most
+   ``max_ahead + 2N * chunk`` samples ahead; ``AsyncTxProducer`` frames
+   payload-exact; ``multichannel_txrx`` at its defaults and at ``-n 4 -P
+   400 -R 4`` payload-exact.  A worker thread that dies fails the phase;
+25. 802.11a on the card: ``wlanframe_tx -r R -N 5`` -> ``wlanframe_rx``
+   5/5 valid PSDUs at each of the 8 rates, and the sync driven directly
+   returns the regenerated PSDUs byte for byte with the CPU port's rows
+   (t_start, rate, length, flags exact; cfo within 1e-5, rssi within
+   1e-4 dB); ``-P 1500`` frames at 6 and 54 Mb/s through ``wlanframe_rx
+   -p 1500``, byte for byte; one stream impaired once (``--snr 15 --cfo
+   0.002``, rate 24) decoded on the card and the CPU, equal, 3/3; the
+   soft Viterbi's bits equal the CPU's on the pairs of a real dispatch and
+   on random pairs with erasures and exact ties, the soft demap within
+   1e-6 of max |LLR|, the detection metric within 1e-5 where both gates
+   are open; B1-B5 launched 0 times;
+26. times (CUDA-synchronised, after a warm-up, every run decode-checked):
+   ``run_pipelined`` against the direct step loop (both reading the file
+   with ``NativeReader``) in turns (direct, pipelined, pipelined, direct)
+   in samples/s, the TX worker's output samples/s, WLAN input samples/s over the default stream, and WLAN ms
+   per detecting block with the DATA Viterbi's ms, at ``-p 256`` and
+   ``-p 1500``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -169,6 +199,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -251,6 +282,15 @@ SOFT_GOLAY_BLOCKS = 8192
 SOFT_CPU_ROWS = 8              # rows of the 256-entry demap held on the CPU
 SOFT_FRAMES, SOFT_SEED = 10, 42
 SOFT_SNR = "-1.5"              # the low-SNR GMSK v27 file: soft above hard
+# the streaming plumbing (phases 24 and 26): the TX worker's step and bound
+TXW_CHUNK, TXW_AHEAD, TXW_PACKETS = 256, 65536, 3
+STREAM_TIMED_RUNS = 2          # per side, in turns
+# the 802.11a path (phases 25 and 26) at the wlanframe_tx/rx defaults
+WLAN_FRAMES, WLAN_PSDU, WLAN_SEED = 5, 200, 42
+WLAN_MTU, WLAN_MTU_FRAMES = 1500, 3
+WLAN_CFO_ATOL, WLAN_RSSI_ATOL = 1e-5, 1e-4
+WLAN_METRIC_ATOL = 1e-5
+WLAN_TIMED_RUNS = 2
 
 
 def card() -> str:
@@ -1953,6 +1993,538 @@ def run_duplex(label):
     return dict(kernels.launches)
 
 
+def worker_errors():
+    """Record the exceptions of threads that die (``threading.excepthook``)
+    into the returned list until ``restore()``."""
+    seen, old = [], threading.excepthook
+    threading.excepthook = lambda args: seen.append(args.exc_value)
+
+    def restore():
+        threading.excepthook = old
+        if seen:
+            raise AssertionError(f"{len(seen)} worker thread(s) died: "
+                                 f"{seen[0]!r}") from seen[0]
+    return restore
+
+
+def mc_frames_check(what, frames, sent):
+    """Every sent (header bytes -> payload) decodes payload-exact among the
+    ``MultichannelRx`` frames."""
+    valid = {bytes(f["header"]): f for f in frames if f["payload_valid"]}
+    missing = [h for h in sent if h not in valid or
+               not np.array_equal(valid[h]["payload"], sent[h])]
+    if missing:
+        raise AssertionError(f"{what}: {len(missing)} of {len(sent)} "
+                             f"frames not decoded payload-exact")
+    return len(sent)
+
+
+def mc_results_equal(a, b):
+    """Two runs' per-step multichannel results (host tensors) agree: the
+    same detections and offsets, the same payload-valid rows and bytes."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        det, ok = x.detected, x.payload_valid
+        if not (torch.equal(det, y.detected) and
+                torch.equal(ok, y.payload_valid) and
+                torch.equal(x.t_start[det], y.t_start[det]) and
+                torch.equal(x.payload[ok], y.payload[ok])):
+            return False
+    return True
+
+
+def stream_runs(path, g1, step, init, dev):
+    """(direct, pipelined) over the file's blocks of ``g1`` samples: the
+    direct step loop (read a block, step, copy its results to the host)
+    and ``NativeReader`` -> ``BlockPrefetcher`` -> ``run_pipelined``; each
+    returns (per-step host results, seconds)."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.io import native
+    from liquid_usrp_tpu_torch.io.pipeline import run_pipelined
+
+    def host(res):
+        return ofdm_sync.FrameResults(*(v.cpu() for v in res))
+
+    def direct():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, out = init(), []
+        for blk in native.NativeReader(path, g1):
+            st, res = step(st, torch.as_tensor(blk, device=dev))
+            out.append(host(res))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def piped():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        run_pipelined(native.NativeReader(path, g1), step, init(),
+                      lambda res: out.append(host(res)))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    return direct, piped
+
+
+def run_streaming(blocks, flush, weights, expected, dev, tmpdir, label):
+    """The streaming plumbing at the bench configuration (phase 24): the
+    mixture through ``NativeWriter`` (bytes equal ``write_file``'s) and
+    back through ``NativeReader`` -> ``BlockPrefetcher`` ->
+    ``run_pipelined`` over ``make_mcrx_step`` (88/88 with ``bench.py``'s
+    fingerprints, equal to the direct step loop, B1 launched); the TX
+    worker at N=4 with 400-byte packets queued mid-stream while the main
+    thread runs the receiver on the card; ``AsyncTxProducer``; the
+    ``multichannel_txrx`` CLI.  A worker thread that dies fails the phase.
+    Returns the launch counts, and what phase 26 times."""
+    from liquid_usrp_tpu_torch.apps import multichannel_txrx
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    from liquid_usrp_tpu_torch.io import native
+    from liquid_usrp_tpu_torch.io.pipeline import AsyncTxProducer
+    from liquid_usrp_tpu_torch.models.multichannel import (MultichannelRx,
+                                                           MultichannelTx,
+                                                           make_mcrx_step)
+    from liquid_usrp_tpu_torch.ops import kernels
+    restore = worker_errors()
+    try:
+        params = ofdm.make_ofdm_params(M, CP, TAPER)
+        sync = ofdm_sync.make_sync(params, block_size=BLOCK,
+                                   max_payload=MAX_PAYLOAD,
+                                   max_frames=MAX_FRAMES, use_pallas=1)
+        init, step = make_mcrx_step(N, sync, dev)
+        g1 = 2 * N * BLOCK
+        n_flush = -(-(sync.overlap // BLOCK + 1) // N_BLOCKS)
+        host = np.concatenate([blocks.cpu().numpy()] +
+                              [flush.cpu().numpy()] * n_flush)
+        pw, pf = str(Path(tmpdir) / "mc_w.iq"), str(Path(tmpdir) / "mc_f.iq")
+        with native.NativeWriter(pw) as w:
+            for lo in range(0, len(host), g1):
+                w.push(host[lo:lo + g1])
+        native.write_file(pf, host)
+        if Path(pw).read_bytes() != Path(pf).read_bytes():
+            raise AssertionError("NativeWriter's file differs from "
+                                 "write_file's")
+        direct, piped = stream_runs(pw, g1, step, init, dev)
+        kernels.reset_launch_counts()
+        p_res, _ = piped()
+        launches = dict(kernels.launches)
+        d_res, _ = direct()
+        w64 = torch.as_tensor(weights.astype(np.int64))
+        cnt = sum(fingerprint(r, w64)[0] for r in p_res)
+        fp = sum(fingerprint(r, w64)[1] for r in p_res)
+        check_decoded("run_pipelined", cnt, fp, expected)
+        if not mc_results_equal(p_res, d_res):
+            raise AssertionError("run_pipelined's results differ from the "
+                                 "direct step loop's")
+        if launches["detect_metric_xcorr_onepass"] <= 0:
+            raise AssertionError("run_pipelined did not launch B1")
+        print(f"NativeWriter file ({len(host)} samples) equals write_file's "
+              f"byte for byte; NativeReader -> BlockPrefetcher -> "
+              f"run_pipelined over make_mcrx_step: {int(cnt.sum())}/"
+              f"{sum(expected[0])} frames with bench.py's fingerprints, "
+              f"equal to the direct step loop ({len(p_res)} steps); "
+              f"launches {launches}", flush=True)
+
+        # the TX worker: packets queued mid-stream, the receiver stepping
+        # on the card in this thread while the worker steps in its own
+        rng = np.random.default_rng(24)
+        tx = MultichannelTx(N, M=M, cp_len=CP, taper_len=TAPER, device=dev)
+        rx = MultichannelRx(N, M=M, cp_len=CP, taper_len=TAPER,
+                            max_payload=MAX_PAYLOAD, device=dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tx.start_worker(chunk=TXW_CHUNK, max_ahead=TXW_AHEAD)
+        sent, frames, peak = {}, [], 0
+        try:
+            deadline = time.time() + 60
+            while tx.samples_ahead < TXW_AHEAD and time.time() < deadline:
+                time.sleep(0.005)
+            peak = tx.samples_ahead
+            for rep in range(TXW_PACKETS):
+                for ch in range(N):
+                    h = rng.integers(0, 256, 8, dtype=np.uint8)
+                    h[:2] = rep, ch
+                    p = rng.integers(0, 256, PAYLOAD, dtype=np.uint8)
+                    tx.update_data(ch, h, p)
+                    sent[bytes(h)] = p
+                while not all(tx.is_channel_ready(c) for c in range(N)):
+                    peak = max(peak, tx.samples_ahead)
+                    frames += rx.execute(tx.read_samples(16384))
+        finally:
+            tx.stop_worker()
+        peak = max(peak, tx.samples_ahead)
+        frames += rx.execute(tx.read_samples(
+            tx.samples_ahead + 2 * N * (2 * tx.chz.P + 64))) + rx.flush()
+        torch.cuda.synchronize()
+        n_ok = mc_frames_check("TX worker", frames, sent)
+        if not TXW_AHEAD <= peak <= TXW_AHEAD + 2 * N * TXW_CHUNK:
+            raise AssertionError(f"TX worker: {peak} samples ahead, bound "
+                                 f"{TXW_AHEAD} + {2 * N * TXW_CHUNK}")
+        print(f"TX worker (chunk {TXW_CHUNK}, max_ahead {TXW_AHEAD}): "
+              f"{n_ok}/{len(sent)} frames queued mid-stream decode "
+              f"payload-exact, the receiver stepping on the card in the "
+              f"main thread; at most {peak} samples ahead (bound "
+              f"{TXW_AHEAD + 2 * N * TXW_CHUNK}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        prod = AsyncTxProducer(MultichannelTx(N, M=M, cp_len=CP,
+                                              taper_len=TAPER, device=dev),
+                               block_channel_samples=256, depth=8)
+        sent_p = {}
+        for rep in range(2):
+            for ch in range(N):
+                h = rng.integers(0, 256, 8, dtype=np.uint8)
+                h[:2] = 0x40 + rep, ch
+                p = rng.integers(0, 256, PAYLOAD, dtype=np.uint8)
+                prod.transmit_packet(ch, h, p)
+                sent_p[bytes(h)] = p
+        prod.close()
+        air = np.concatenate(list(prod.blocks()))
+        rx = MultichannelRx(N, M=M, cp_len=CP, taper_len=TAPER,
+                            max_payload=MAX_PAYLOAD, device=dev)
+        n_prod = mc_frames_check("AsyncTxProducer",
+                                 rx.execute(air) + rx.flush(), sent_p)
+        cli = []
+        for argv in (["-q"], ["-n", str(N), "-P", str(PAYLOAD), "-R", "4",
+                              "-q"]):
+            text = run_app(multichannel_txrx.main, argv)
+            ok, n_sent = map(int, re.search(
+                r"payload-exact\s+:\s+(\d+) / (\d+) sent", text).groups())
+            if not ok == n_sent > 0:
+                raise AssertionError(f"multichannel_txrx {argv}: {ok} of "
+                                     f"{n_sent} payload-exact")
+            cli.append(f"{' '.join(argv)}: {ok}/{n_sent}")
+        torch.cuda.synchronize()
+        worker_launches = dict(kernels.launches)
+        print(f"AsyncTxProducer: {n_prod}/{len(sent_p)} payload-exact; "
+              f"multichannel_txrx {'; '.join(cli)} payload-exact on {label}",
+              flush=True)
+    finally:
+        restore()
+    runs = {"pipelined": launches, "worker": worker_launches}
+    return runs, dict(direct=direct, piped=piped, w64=w64, g1=g1,
+                      expected=expected)
+
+
+def wlan_padded(stream, sync):
+    """A host stream padded with the blocks that drain the sync's overlap,
+    as ``[n_blocks, block_size]``."""
+    bs = sync.block_size
+    n_blocks = -(-len(stream) // bs) + sync.overlap // bs + 1
+    x = np.zeros(n_blocks * bs, np.complex64)
+    x[:len(stream)] = stream
+    return x.reshape(n_blocks, bs)
+
+
+def wlan_rows(stream, sync, dev):
+    """The port's WLAN sync over a host stream on ``dev``: the detected
+    rows (t_start, rate, length, signal_valid, psdu_valid, PSDU bytes,
+    cfo, rssi) in stream order."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    blocks = torch.as_tensor(wlan_padded(stream, sync), device=dev)
+    step = wlan.make_wlan_sync_step(sync)
+    state, rows = wlan.wlan_sync_init(sync, dev), []
+    for blk in blocks:
+        state, res = step(state, blk)
+        res = wlan.WlanResults(*(v.cpu().numpy() for v in res))
+        for i in np.nonzero(res.detected)[0]:
+            rows.append((int(res.t_start[i]), int(res.rate[i]),
+                         int(res.length[i]), bool(res.signal_valid[i]),
+                         bool(res.psdu_valid[i]),
+                         res.psdu[i][: int(res.length[i])].tobytes(),
+                         float(res.cfo[i]), float(res.rssi[i])))
+    return sorted(rows)
+
+
+def wlan_rows_equal(what, got, want):
+    """Card rows against CPU rows: exact but cfo (1e-5) and rssi (1e-4)."""
+    if [r[:6] for r in got] != [r[:6] for r in want]:
+        raise AssertionError(f"{what}: the card's rows differ from the CPU's"
+                             f": {[r[:5] for r in got]} vs "
+                             f"{[r[:5] for r in want]}")
+    d_cfo = max((abs(a[6] - b[6]) for a, b in zip(got, want)), default=0.0)
+    d_rssi = max((abs(a[7] - b[7]) for a, b in zip(got, want)), default=0.0)
+    if not (d_cfo <= WLAN_CFO_ATOL and d_rssi <= WLAN_RSSI_ATOL):
+        raise AssertionError(f"{what}: cfo {d_cfo:.2e}, rssi {d_rssi:.2e}")
+    return d_cfo, d_rssi
+
+
+def wlan_check_psdus(what, rows, psdus, n_want):
+    """The PSDU-valid rows carry the regenerated PSDUs in order."""
+    got = [r[5] for r in rows if r[4]]
+    if len(got) != n_want or got != [p.tobytes() for p in psdus[:n_want]]:
+        raise AssertionError(f"{what}: {len(got)} valid PSDUs, expected "
+                             f"{n_want} equal to the regenerated ones")
+
+
+def wlan_draws(n, P, seed=WLAN_SEED):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, P, dtype=np.uint8) for _ in range(n)]
+
+
+def record_viterbi(fn):
+    """Run ``fn()`` with the WLAN Viterbi's calls recorded: returns
+    ``(fn(), [(pairs, bits)])`` on the device they ran on."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    orig, calls = wlan._viterbi_soft, []
+
+    def rec(pairs):
+        bits = orig(pairs)
+        calls.append((pairs, bits))
+        return bits
+    wlan._viterbi_soft = rec
+    try:
+        return fn(), calls
+    finally:
+        wlan._viterbi_soft = orig
+
+
+def first_detecting_block(stream, sync, dev):
+    """(state before, block) of the first block of ``stream`` whose sync
+    step detects a frame, on ``dev``."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    blocks = torch.as_tensor(wlan_padded(stream, sync), device=dev)
+    state = wlan.wlan_sync_init(sync, dev)
+    for blk in blocks:
+        new, res = wlan.wlan_sync_block(sync, state, blk)
+        if bool(res.psdu_valid.any()):
+            return state, blk
+        state = new
+    raise AssertionError("no detecting block")
+
+
+def run_wlan(dev, tmpdir, label):
+    """The 802.11a path on the card (phase 25).  Returns the kernel launch
+    counts of its runs and the streams phase 26 times."""
+    from liquid_usrp_tpu_torch.apps import common, wlanframe_rx, wlanframe_tx
+    from liquid_usrp_tpu_torch.framing import wlan
+    from liquid_usrp_tpu_torch.io.streams import read_iq, write_iq
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sync = wlan.make_wlan_sync()
+    draws = wlan_draws(WLAN_FRAMES, WLAN_PSDU)
+    streams, worst = {}, (0.0, 0.0)
+    for rate in sorted(wlan.WLAN_RATES):
+        f = str(Path(tmpdir) / f"w{rate}.iq")
+        run_app(wlanframe_tx.main, ["-o", f, "-r", str(rate), "-N",
+                                    str(WLAN_FRAMES)])
+        text = run_app(wlanframe_rx.main, ["-i", f, "-q"])
+        if app_count(text, "valid PSDUs") != WLAN_FRAMES:
+            raise AssertionError(f"wlanframe_rx -r {rate}: {text[-300:]}")
+        stream = read_iq(f)
+        streams[rate] = stream
+        got = wlan_rows(stream, sync, dev)
+        wlan_check_psdus(f"rate {rate}", got, draws, WLAN_FRAMES)
+        flen = wlan.wlan_frame_length(rate, WLAN_PSDU)
+        if [r[0] for r in got] != [200 + k * (flen + 200)
+                                   for k in range(WLAN_FRAMES)]:
+            raise AssertionError(f"rate {rate}: t_start {[r[0] for r in got]}")
+        d = wlan_rows_equal(f"rate {rate}", got,
+                            wlan_rows(stream, sync, "cpu"))
+        worst = tuple(max(a, b) for a, b in zip(worst, d))
+    print(f"wlanframe_tx -N {WLAN_FRAMES} -> wlanframe_rx: {WLAN_FRAMES}/"
+          f"{WLAN_FRAMES} valid PSDUs at each of the 8 rates; the sync "
+          f"driven directly returns the regenerated PSDUs byte for byte at "
+          f"the CPU port's t_start (rows equal, cfo within {worst[0]:.2e}, "
+          f"rssi within {worst[1]:.2e} dB); {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+
+    t0 = time.perf_counter()
+    mtu_sync = wlan.make_wlan_sync(max_psdu=WLAN_MTU)
+    mtu = {}
+    for rate in (6, 54):
+        f = str(Path(tmpdir) / f"mtu{rate}.iq")
+        run_app(wlanframe_tx.main, ["-o", f, "-r", str(rate), "-N",
+                                    str(WLAN_MTU_FRAMES), "-P",
+                                    str(WLAN_MTU)])
+        text = run_app(wlanframe_rx.main, ["-i", f, "-p", str(WLAN_MTU),
+                                           "-q"])
+        if app_count(text, "valid PSDUs") != WLAN_MTU_FRAMES:
+            raise AssertionError(f"wlanframe_rx -p {WLAN_MTU} at {rate}: "
+                                 f"{text[-300:]}")
+        mtu[rate] = read_iq(f)
+        wlan_check_psdus(f"MTU at {rate}", wlan_rows(mtu[rate], mtu_sync,
+                                                     dev),
+                         wlan_draws(WLAN_MTU_FRAMES, WLAN_MTU),
+                         WLAN_MTU_FRAMES)
+    print(f"-P {WLAN_MTU} at 6 and 54 Mb/s: wlanframe_rx -p {WLAN_MTU} "
+          f"{WLAN_MTU_FRAMES}/{WLAN_MTU_FRAMES} each, PSDUs byte for byte; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    f = str(Path(tmpdir) / "w24.iq")
+    run_app(wlanframe_tx.main, ["-o", f, "-N", "3", "-r", "24", "-P", "90"])
+    clean = read_iq(f)
+    impaired = common.apply_channel(clean, {"snr": "15", "cfo": "0.002"},
+                                    signal_power=common.occupied_power(clean))
+    fi = str(Path(tmpdir) / "w24_impaired.iq")
+    write_iq(fi, impaired)
+    got = wlan_rows(read_iq(fi), sync, dev)
+    wlan_rows_equal("impaired", got, wlan_rows(read_iq(fi), sync, "cpu"))
+    wlan_check_psdus("impaired", got, wlan_draws(3, 90), 3)
+
+    # the card against the CPU on the same inputs
+    state, blk = first_detecting_block(streams[6], sync, dev)
+    _, calls = record_viterbi(lambda: wlan.wlan_sync_block(sync, state, blk))
+    n_pairs = 0
+    for pairs, bits in calls:
+        if not torch.equal(wlan._viterbi_soft(pairs.cpu()), bits.cpu()):
+            raise AssertionError("WLAN Viterbi: the card's bits differ from "
+                                 "the CPU's on a dispatch's pairs")
+        n_pairs += pairs.shape[0] * pairs.shape[1]
+    rng = np.random.default_rng(25)
+    rnd = rng.normal(size=(4, 3000, 2)).astype(np.float32)
+    rnd[1] = np.round(rnd[1] * 2) / 2                 # exact ties
+    rnd[2, 1500:] = 0.0                               # erased tail
+    rnd[3, rng.random((3000, 2)) < 0.3] = 0.0         # erasures
+    rnd = torch.as_tensor(rnd)
+    if not torch.equal(wlan._viterbi_soft(rnd.to(dev)).cpu(),
+                       wlan._viterbi_soft(rnd)):
+        raise AssertionError("WLAN Viterbi: the card's bits differ from the "
+                             "CPU's on random pairs")
+    pts = torch.as_tensor((rng.normal(size=20000) + 1j *
+                           rng.normal(size=20000)).astype(np.complex64))
+    llr_err = 0.0
+    for bpsc in (1, 2, 4, 6):
+        want = wlan._demap_soft(pts, bpsc)
+        got_l = wlan._demap_soft(pts.to(dev), bpsc).cpu()
+        llr_err = max(llr_err, float((got_l - want).abs().max()) /
+                      float(want.abs().max()))
+    if not llr_err <= SOFT_LLR_RTOL:
+        raise AssertionError(f"WLAN soft demap: {llr_err:.2e} of max |LLR|")
+    m_err, flips, n_ext = 0.0, 0, 0
+    bs = sync.block_size
+    for rate in (6, 54):
+        blocks = wlan_padded(streams[rate], sync)
+        x = np.concatenate([np.zeros(sync.overlap, np.complex64),
+                            blocks.reshape(-1)])
+        for b in range(len(blocks)):
+            ext = torch.as_tensor(x[b * bs:b * bs + sync.overlap + bs])
+            mc = wlan._wlan_metric(sync, ext.to(dev)).cpu()
+            mh = wlan._wlan_metric(sync, ext)
+            on = (mc != 0) & (mh != 0)
+            flips += int(((mc != 0) ^ (mh != 0)).sum())
+            if bool(on.any()):
+                m_err = max(m_err, float((mc - mh)[on].abs().max()))
+            n_ext += 1
+    if not m_err <= WLAN_METRIC_ATOL:
+        raise AssertionError(f"WLAN metric: card vs CPU {m_err:.2e}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    print(f"WLAN impaired (--snr 15 --cfo 0.002, rate 24, impaired once): "
+          f"card rows equal the CPU's, 3/3 PSDUs; the Viterbi's bits equal "
+          f"the CPU's on a dispatch's {n_pairs} pairs ({len(calls)} calls) "
+          f"and on 12000 random pairs with ties and erasures; soft demap "
+          f"within {llr_err:.2e} of max |LLR|; the metric within "
+          f"{m_err:.2e} over {n_ext} windows where both gates are open "
+          f"({flips} gate flips); on {label}", flush=True)
+    return launches, dict(sync=sync, mtu_sync=mtu_sync, default=streams[6],
+                          mtu=mtu[6])
+
+
+def time_streaming(ctx, dev, label):
+    """Phase 26, streaming: ``run_pipelined`` against the direct step loop
+    in turns (direct, pipelined, pipelined, direct, ...), each run checked;
+    the TX worker's output samples/s, its frames decode-checked."""
+    from liquid_usrp_tpu_torch.models.multichannel import (MultichannelRx,
+                                                           MultichannelTx)
+    times = {"direct": [], "pipelined": []}
+    order = ["direct", "pipelined", "pipelined", "direct"] * \
+        (STREAM_TIMED_RUNS // 2)
+    n_samples = None
+    for side in order:
+        res, sec = (ctx["direct"] if side == "direct" else ctx["piped"])()
+        cnt = sum(fingerprint(r, ctx["w64"])[0] for r in res)
+        fp = sum(fingerprint(r, ctx["w64"])[1] for r in res)
+        check_decoded(f"timed {side}", cnt, fp, ctx["expected"])
+        n_samples = len(res) * ctx["g1"]
+        times[side].append(n_samples / sec)
+    print(f"stream timings ({n_samples} samples a run, decode-verified, "
+          f"in turns {order}): direct step loop "
+          f"{[round(v / 1e6, 4) for v in times['direct']]} MS/s, "
+          f"run_pipelined {[round(v / 1e6, 4) for v in times['pipelined']]}"
+          f" MS/s on {label}", flush=True)
+
+    rng = np.random.default_rng(26)
+    tx = MultichannelTx(N, M=M, cp_len=CP, taper_len=TAPER, device=dev)
+    tx.generate_samples(TXW_CHUNK)
+    sent = {}
+    for ch in range(N):
+        h = rng.integers(0, 256, 8, dtype=np.uint8)
+        h[0] = ch
+        p = rng.integers(0, 256, PAYLOAD, dtype=np.uint8)
+        tx.update_data(ch, h, p)
+        sent[bytes(h)] = p
+    total = 1 << 20
+    restore = worker_errors()
+    try:
+        t0 = time.perf_counter()
+        tx.start_worker(chunk=TXW_CHUNK, max_ahead=TXW_AHEAD)
+        try:
+            chunks = [tx.read_samples(16384) for _ in range(total // 16384)]
+        finally:
+            tx.stop_worker()
+        sec = time.perf_counter() - t0
+    finally:
+        restore()
+    rx = MultichannelRx(N, M=M, cp_len=CP, taper_len=TAPER,
+                        max_payload=MAX_PAYLOAD, device=dev)
+    mc_frames_check("timed TX worker",
+                    rx.execute(np.concatenate(chunks)) + rx.flush(), sent)
+    print(f"TX worker output: {total / sec / 1e6:.4f} MS/s ({total} samples "
+          f"in {sec * 1e3:.1f} ms, chunk {TXW_CHUNK}, {N} frames decoded) on "
+          f"{label}", flush=True)
+    return times, total / sec
+
+
+def time_wlan(ctx, dev, label):
+    """Phase 26, WLAN: decode-verified input samples/s over the default
+    stream; ms per detecting block and the DATA Viterbi's ms in that
+    block, at -p 256 and -p 1500."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    draws = wlan_draws(WLAN_FRAMES, WLAN_PSDU)
+    rates = []
+    for _ in range(WLAN_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = wlan_rows(ctx["default"], ctx["sync"], dev)
+        sec = time.perf_counter() - t0
+        wlan_check_psdus("timed WLAN", rows, draws, WLAN_FRAMES)
+        rates.append(len(ctx["default"]) / sec)
+    out = {"sps": rates}
+    for name, sync, stream in (("p256", ctx["sync"], ctx["default"]),
+                               ("p1500", ctx["mtu_sync"], ctx["mtu"])):
+        state, blk = first_detecting_block(stream, sync, dev)
+        (_, want), calls = record_viterbi(
+            lambda: wlan.wlan_sync_block(sync, state, blk))
+        pairs, bits = max(calls, key=lambda c: c[0].shape[1])
+        checks = []
+
+        def one():
+            _, res = wlan.wlan_sync_block(sync, state, blk)
+            checks.append(res.psdu)
+
+        ms = cuda_ms(one, 2)
+        if not all(torch.equal(c, want.psdu) for c in checks):
+            raise AssertionError(f"WLAN {name}: a timed block decoded "
+                                 f"other PSDUs")
+        vbits = []
+        v_ms = cuda_ms(lambda: vbits.append(wlan._viterbi_soft(pairs)), 2)
+        if not all(torch.equal(b, bits) for b in vbits):
+            raise AssertionError(f"WLAN {name}: a timed Viterbi gave "
+                                 f"other bits")
+        out[name] = (ms, v_ms, tuple(pairs.shape))
+    print(f"WLAN timings on {label}: default stream (rate 6, "
+          f"{WLAN_FRAMES} x {WLAN_PSDU} bytes, {len(ctx['default'])} "
+          f"samples) {[round(v / 1e6, 4) for v in rates]} MS/s "
+          f"decode-verified; a detecting block at -p 256 "
+          f"{out['p256'][0]:.2f} ms (the DATA Viterbi {out['p256'][1]:.2f} "
+          f"ms over {out['p256'][2]} pairs), at -p 1500 "
+          f"{out['p1500'][0]:.2f} ms (Viterbi {out['p1500'][1]:.2f} ms over "
+          f"{out['p1500'][2]})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2087,6 +2659,26 @@ def main() -> int:
           f"ms; soft demapper at the flexframe dispatch {demap[0]:.3f} ms, "
           f"peak {demap[1]:.1f} MB", flush=True)
     path_runs += [soft_ops, soft_runs, soft_ofdm, a13, duplex]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        stream_launch, stream_ctx = run_streaming(blocks, flush, weights,
+                                                  expected, dev, tmpdir,
+                                                  label)
+        wlan_launch, wlan_ctx = run_wlan(dev, tmpdir, label)
+        time_streaming(stream_ctx, dev, label)
+        time_wlan(wlan_ctx, dev, label)
+    # the streaming runs detect with B1 (and only B1); WLAN runs no kernel
+    for what, run in stream_launch.items():
+        other = {k: v for k, v in run.items()
+                 if k != "detect_metric_xcorr_onepass" and v}
+        if other or run["detect_metric_xcorr_onepass"] <= 0:
+            raise AssertionError(f"the {what} runs launched {run}")
+    if any(wlan_launch.values()):
+        raise AssertionError(f"the WLAN runs launched {wlan_launch}")
+    b1 = {k: v["detect_metric_xcorr_onepass"]
+          for k, v in stream_launch.items()}
+    print(f"streaming runs: B1 only, launched {b1}; WLAN runs: B1-B5 "
+          f"launched 0 times", flush=True)
+    path_runs += [*stream_launch.values(), wlan_launch]
     # B3 is on the single-channel path (legacy detector, level 1); B4 and
     # B5 are on no path (the JAX package calls them only from tests): their
     # counts over every path run above must be 0

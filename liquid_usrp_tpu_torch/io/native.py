@@ -3,9 +3,10 @@
 Port of ``liquid_usrp_tpu/io/native.py``, loading the same library
 (``native/libiqstream.so``, built by ``make -C native`` on first use when a
 toolchain is there): CF32/SC16 file I/O, a double-buffered background block
-reader, and one-pass converters to the device-ingest planes of
+reader and writer, and one-pass converters to the device-ingest planes of
 ``ops/iqfmt.py``.  Without the library every function here takes its NumPy
-path, except :class:`NativeReader`, which raises.
+path, except :class:`NativeReader` and :class:`NativeWriter`, which
+raise.
 
 The converters return host tensors: bfloat16 planes are built from the
 engine's uint16 bit patterns viewed as ``torch.bfloat16`` (no
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["available", "read_file", "write_file", "NativeReader",
-           "FORMAT_CF32", "FORMAT_SC16", "cf32_to_bf16_planes",
+           "NativeWriter", "FORMAT_CF32", "FORMAT_SC16", "cf32_to_bf16_planes",
            "cf32_to_sc8_planes"]
 
 FORMAT_CF32 = 0
@@ -81,6 +82,14 @@ def _load():
     lib.iq_write_file.restype = ctypes.c_int
     lib.iq_write_file.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                   ctypes.c_void_p, ctypes.c_size_t]
+    lib.iq_writer_open.restype = ctypes.c_void_p
+    lib.iq_writer_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                   ctypes.c_size_t]
+    lib.iq_writer_push.restype = ctypes.c_int
+    lib.iq_writer_push.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_size_t]
+    lib.iq_writer_close.restype = ctypes.c_int
+    lib.iq_writer_close.argtypes = [ctypes.c_void_p]
     lib.iq_cf32_to_bf16_planes.restype = None
     lib.iq_cf32_to_bf16_planes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                            ctypes.c_size_t]
@@ -129,14 +138,20 @@ def write_file(path: str, samples: np.ndarray,
         from .streams import write_iq
         write_iq(path, samples)
         return
-    inter = np.empty(2 * samples.size, dtype=np.float32)
-    inter[0::2] = samples.real
-    inter[1::2] = samples.imag
+    inter = _interleave(samples)
     rc = lib.iq_write_file(path.encode(), fmt,
                            inter.ctypes.data_as(ctypes.c_void_p),
                            samples.size)
     if rc != 0:
         raise IOError(f"iq_write_file failed for {path}")
+
+
+def _interleave(samples: np.ndarray) -> np.ndarray:
+    """Complex64 ``[n]`` -> float32 ``[2n]`` as I, Q, I, Q, ..."""
+    inter = np.empty(2 * samples.size, dtype=np.float32)
+    inter[0::2] = samples.real
+    inter[1::2] = samples.imag
+    return inter
 
 
 def cf32_to_bf16_planes(samples: np.ndarray) -> torch.Tensor:
@@ -201,8 +216,8 @@ class NativeReader:
         if n == 0:
             self.close()
             raise StopIteration
-        out = (self._buf[: 2 * n][0::2] +
-               1j * self._buf[: 2 * n][1::2]).astype(np.complex64)
+        # interleaved float32 I, Q is complex64's layout: one copy
+        out = self._buf[: 2 * n].view(np.complex64).copy()
         if n < self._block:
             self.close()
         return out
@@ -221,4 +236,43 @@ class NativeReader:
     def __del__(self):
         # an abandoned reader would leak the C++ fill thread, both block
         # buffers and the FILE handle
+        self.close()
+
+
+class NativeWriter:
+    """Background-thread block writer (the TX-side mirror of
+    :class:`NativeReader`): ``push`` enqueues a block and returns; a C++
+    worker thread drains the bounded queue (``depth`` blocks, back-pressure
+    when full) to disk."""
+
+    def __init__(self, path: str, fmt: int = FORMAT_CF32, depth: int = 8):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native iqstream library unavailable")
+        self._lib = lib
+        self._h = lib.iq_writer_open(path.encode(), fmt, depth)
+        if not self._h:
+            raise IOError(f"cannot open {path} for writing")
+
+    def push(self, samples: np.ndarray) -> None:
+        if self._h is None:
+            raise RuntimeError("writer closed")
+        samples = np.asarray(samples, dtype=np.complex64)
+        inter = _interleave(samples)
+        rc = self._lib.iq_writer_push(
+            self._h, inter.ctypes.data_as(ctypes.c_void_p), samples.size)
+        if rc != 0:
+            raise IOError("iq_writer_push failed")
+
+    def close(self) -> None:
+        if self._h is not None:
+            rc = self._lib.iq_writer_close(self._h)
+            self._h = None
+            if rc != 0:
+                raise IOError("write error on close")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
         self.close()

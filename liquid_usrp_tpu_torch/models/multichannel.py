@@ -9,6 +9,9 @@ Port of ``liquid_usrp_tpu/models/multichannel.py``:
   N per-channel synchronizers batched into one detect + decode
   (:func:`make_mcrx_step`, :func:`make_mcrx_batched_step`,
   :class:`MultichannelRx`).
+* TX + RX (``multichanneltxrx``): the composition, with the TX worker
+  thread that runs ahead of the radio and channel-availability polling
+  (:class:`MultichannelTxRx`).
 
 The step builders keep the JAX signatures, ``(init_state, step)``.  The RX
 builders return the bound methods of an :class:`Mcrx` module, which holds
@@ -17,7 +20,8 @@ the device the step runs on.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import threading
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,7 +33,8 @@ from ..ops import nco as nco_mod
 from ..ops import pfb as pfb_mod
 from ..utils.device import default_device
 
-__all__ = ["MultichannelTx", "MultichannelRx", "Mcrx", "McrxState",
+__all__ = ["MultichannelTx", "MultichannelRx", "MultichannelTxRx", "Mcrx",
+           "McrxState",
            "MctxState", "make_mcrx_step", "make_mcrx_batched_step",
            "make_mctx_step"]
 
@@ -73,7 +78,12 @@ def make_mctx_step(num_channels: int, device=None):
 class MultichannelTx:
     """N-channel OFDM downlink synthesizer (host scheduling + device DSP).
 
-    The reference's asynchronous TX worker thread is not ported yet."""
+    ``self._cv`` guards the queues, the synthesis state and the worker's
+    ahead-buffer, so :meth:`update_data` on one thread and the worker (or
+    :meth:`generate_samples`) on another do not race.  The worker thread
+    launches its work on ``self.device``, on that device's current stream,
+    as the caller's thread does; ``_generate``'s copy to the host is its
+    sync point."""
 
     def __init__(self, num_channels: int, M: int = 48, cp_len: int = 6,
                  taper_len: int = 4, expansion: int = payload_codec.EXPANSION,
@@ -86,21 +96,36 @@ class MultichannelTx:
         self.chz = pfb_mod.pfbch_create(2 * num_channels, m=13, As=60.0)
         self._init, self._step = make_mctx_step(num_channels, self.device)
         self._state = self._init()
+        # per-channel pending baseband samples (time-domain frame streams)
         self._queues = [np.zeros(0, np.complex64)
                         for _ in range(num_channels)]
+        # the async TX worker (the reference's tx_worker thread, which keeps
+        # the radio fed ahead of the consumption cursor); idle until
+        # start_worker()
+        self._cv = threading.Condition()
+        self._worker: Optional[threading.Thread] = None
+        self._running = False
+        self._ahead: list[np.ndarray] = []   # produced, unconsumed samples
+        self._ahead_len = 0
+        self._max_ahead = 0
 
     def GetNumChannels(self) -> int:
         return self.num_channels
 
     def Reset(self):
-        """Drop queued packets and the carried synthesis state."""
-        self._queues = [np.zeros(0, np.complex64)
-                        for _ in range(self.num_channels)]
-        self._state = self._init()
+        """Drop queued packets, the carried synthesis state and the
+        worker's ahead-buffer."""
+        with self._cv:
+            self._queues = [np.zeros(0, np.complex64)
+                            for _ in range(self.num_channels)]
+            self._state = self._init()
+            self._ahead = []
+            self._ahead_len = 0
 
     def is_channel_ready(self, ch: int) -> bool:
         """True when channel ``ch`` has drained its queued frame."""
-        return len(self._queues[ch]) == 0
+        with self._cv:
+            return len(self._queues[ch]) == 0
 
     def update_data(self, ch: int, header, payload, mod=None, fec0=None,
                     fec1=None):
@@ -115,18 +140,31 @@ class MultichannelTx:
                 fec1=p.fec1 if fec1 is None else fec1,
                 mod=p.mod if mod is None else mod)
             self.props[ch] = p
-        frame = ofdm.assemble_frame(
+        samples = ofdm.assemble_frame(
             self.params, p,
             torch.as_tensor(np.asarray(header, np.uint8), device=self.device),
             torch.as_tensor(np.asarray(payload, np.uint8),
                             device=self.device),
-            expansion=self.expansion)
-        self._queues[ch] = frame.cpu().numpy()
+            expansion=self.expansion).cpu().numpy()
+        with self._cv:
+            # check again under the lock: a concurrent producer may have
+            # queued a frame since the check above, and overwriting it
+            # would drop that packet
+            if len(self._queues[ch]):
+                raise RuntimeError(f"channel {ch} not ready for data")
+            self._queues[ch] = samples
+            self._cv.notify_all()
 
     def generate_samples(self, n_channel_samples: int) -> np.ndarray:
         """Produce ``2N * n_channel_samples`` output samples: each channel
         contributes ``n_channel_samples`` baseband samples from its queue
-        (zeros when idle)."""
+        (zeros when idle).  With the worker running, use
+        :meth:`read_samples`: the worker owns the generation cursor."""
+        with self._cv:
+            return self._generate(n_channel_samples)
+
+    def _generate(self, n_channel_samples: int) -> np.ndarray:
+        """One synthesis step; the caller holds ``self._cv``."""
         N = self.num_channels
         Y = np.zeros((n_channel_samples, 2 * N), dtype=np.complex64)
         for ch in range(N):
@@ -138,6 +176,92 @@ class MultichannelTx:
         self._state, y = self._step(self._state,
                                     torch.as_tensor(Y, device=self.device))
         return y.cpu().numpy()
+
+    # -- async TX worker ----------------------------------------------------
+    # The worker pre-generates into a bounded ahead-buffer; the consumer's
+    # read_samples() waits on the producer, and the producer waits while
+    # max_ahead samples are buffered.
+
+    def start_worker(self, chunk: int = 256, max_ahead: int = 65536):
+        """Start ahead-of-cursor production (``chunk`` channel samples a
+        step, at most ``max_ahead`` output samples buffered)."""
+        with self._cv:
+            if self._running:
+                return
+            self._running = True
+            self._max_ahead = int(max_ahead)
+        self._worker = threading.Thread(
+            target=self._produce_loop, args=(int(chunk),), daemon=True)
+        self._worker.start()
+
+    def _produce_loop(self, chunk: int):
+        try:
+            while True:
+                with self._cv:
+                    while (self._running
+                           and self._ahead_len >= self._max_ahead):
+                        self._cv.wait(0.1)
+                    if not self._running:
+                        return
+                    y = self._generate(chunk)
+                    self._ahead.append(y)
+                    self._ahead_len += len(y)
+                    self._cv.notify_all()
+        finally:
+            # a failed generation must not strand consumers in their wait
+            # loops: clear the running flag and wake everyone (the
+            # exception itself goes to threading.excepthook)
+            with self._cv:
+                self._running = False
+                self._cv.notify_all()
+
+    @property
+    def samples_ahead(self) -> int:
+        """Output samples produced ahead of the consumption cursor."""
+        with self._cv:
+            return self._ahead_len
+
+    def read_samples(self, n: int) -> np.ndarray:
+        """Consume ``n`` output samples from the ahead-buffer, waiting
+        while the worker produces; generates the rest here when the worker
+        is stopped or ``n`` exceeds ``max_ahead`` (the producer parks at
+        the bound, so waiting past it would never progress)."""
+        with self._cv:
+            while (self._running and self._ahead_len < n
+                   and self._ahead_len < self._max_ahead):
+                self._cv.wait(0.1)
+            if self._ahead_len < n:
+                miss = n - self._ahead_len
+                per_step = 2 * self.num_channels
+                y = self._generate(-(-miss // per_step))
+                self._ahead.append(y)
+                self._ahead_len += len(y)
+            # consume from the front, chunk by chunk: O(n) copied a call,
+            # not O(buffered)
+            out, taken = [], 0
+            while taken < n:
+                head = self._ahead[0]
+                take = min(len(head), n - taken)
+                out.append(head[:take])
+                if take == len(head):
+                    self._ahead.pop(0)
+                else:
+                    self._ahead[0] = head[take:]
+                taken += take
+            self._ahead_len -= n
+            self._cv.notify_all()
+            return (out[0] if len(out) == 1
+                    else np.concatenate(out) if out
+                    else np.zeros(0, np.complex64))
+
+    def stop_worker(self):
+        """Stop the producer; buffered samples stay readable."""
+        with self._cv:
+            self._running = False
+            self._cv.notify_all()
+        if self._worker is not None:
+            self._worker.join()
+            self._worker = None
 
 
 # ---------------------------------------------------------------------------
@@ -235,18 +359,22 @@ def make_mcrx_batched_step(num_channels: int, sync: ofdm_sync.OfdmSync,
 
 
 class MultichannelRx:
-    """N-channel uplink analyzer with batched per-channel frame sync."""
+    """N-channel uplink analyzer with batched per-channel frame sync.
+    ``use_pallas`` is the detect level of ``ofdm_sync.make_sync`` (JAX's
+    class takes none and runs its ``"auto"``)."""
 
     def __init__(self, num_channels: int, M: int = 48, cp_len: int = 6,
                  taper_len: int = 4, callback=None, block_size: int = 4096,
                  max_payload: int = 1024, enable_conv: bool = False,
                  soft: bool = False,
-                 expansion: int = payload_codec.EXPANSION, device=None):
+                 expansion: int = payload_codec.EXPANSION, device=None,
+                 use_pallas="auto"):
         self.num_channels = num_channels
         self.params = ofdm.make_ofdm_params(M, cp_len, taper_len)
         self.sync = ofdm_sync.make_sync(
             self.params, block_size=block_size, max_payload=max_payload,
-            enable_conv=enable_conv, soft=soft, expansion=expansion)
+            enable_conv=enable_conv, soft=soft, expansion=expansion,
+            use_pallas=use_pallas)
         self.callback = callback
         self.rx = Mcrx(num_channels, self.sync, None, device)
         self._state = self.rx.init_state()
@@ -317,3 +445,130 @@ class MultichannelRx:
             self.rx.chz, pfb_mod.pfbch_state(self.rx.chz, self.rx.device), y,
             self.rx.h_pol)
         return X[:, :N].T.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# full duplex composition
+# ---------------------------------------------------------------------------
+
+class MultichannelTxRx:
+    """TX + RX composition (the multichanneltxrx surface: non-blocking
+    ``transmit_packet`` and channel-availability polling).  ``rx_kwargs``
+    go to :class:`MultichannelRx` (``block_size``, ``max_payload``,
+    ``enable_conv``, ``soft``, ``use_pallas`` through its sync, ``device``,
+    ...); the TX side takes the same ``device`` and ``expansion``."""
+
+    def __init__(self, num_channels: int, M: int = 48, cp_len: int = 6,
+                 taper_len: int = 4, callback=None, **rx_kwargs):
+        from .ofdmtxrx import RadioConfig
+        self.tx = MultichannelTx(
+            num_channels, M, cp_len, taper_len,
+            expansion=rx_kwargs.get("expansion", payload_codec.EXPANSION),
+            device=rx_kwargs.get("device"))
+        self.rx = MultichannelRx(num_channels, M, cp_len, taper_len,
+                                 callback=callback, **rx_kwargs)
+        self.num_channels = num_channels
+        self.radio = RadioConfig()
+        self._rx_running = False
+
+    # -- radio parameter surface ---------------------------------------------
+    def set_tx_freq(self, f: float):
+        self.radio.tx_freq = f
+
+    def set_tx_rate(self, r: float):
+        self.radio.tx_rate = r
+
+    def set_tx_gain_soft(self, g_db: float):
+        self.radio.tx_gain_soft = g_db
+
+    def set_tx_gain_uhd(self, g_db: float):
+        self.radio.tx_gain_uhd = g_db
+
+    def set_tx_antenna(self, name: str):
+        self.radio.tx_antenna = name
+
+    def set_rx_freq(self, f: float):
+        self.radio.rx_freq = f
+
+    def set_rx_rate(self, r: float):
+        self.radio.rx_rate = r
+
+    def set_rx_gain_uhd(self, g_db: float):
+        self.radio.rx_gain_uhd = g_db
+
+    def set_rx_antenna(self, name: str):
+        self.radio.rx_antenna = name
+
+    def reset_tx(self):
+        self.tx.Reset()
+
+    def reset_rx(self):
+        self.rx.Reset()
+
+    def start_rx(self):
+        self._rx_running = True
+
+    def stop_rx(self):
+        self._rx_running = False
+
+    def run_rx(self, samples) -> list:
+        """Feed mixture samples while RX is started (the rx_worker gate)."""
+        if not self._rx_running:
+            return []
+        return self.rx.execute(samples)
+
+    def transmit_packet(self, ch: int, header, payload, mod=None,
+                        fec0=None, fec1=None) -> bool:
+        if not self.tx.is_channel_ready(ch):
+            return False
+        self.tx.update_data(ch, header, payload, mod, fec0, fec1)
+        return True
+
+    def is_channel_available(self, ch: int) -> bool:
+        return self.tx.is_channel_ready(ch)
+
+    def get_available_channel(self) -> Optional[int]:
+        for ch in range(self.num_channels):
+            if self.tx.is_channel_ready(ch):
+                return ch
+        return None
+
+    def wait_for_channel(self, ch: int) -> np.ndarray:
+        """Drain samples until channel ``ch`` is ready for data and return
+        the drained air (empty when the channel was already free).  With
+        the worker running this consumes its ahead-buffer; otherwise
+        draining is the sample generation."""
+        out = []
+        was_waiting = not self.tx.is_channel_ready(ch)
+        while not self.tx.is_channel_ready(ch):
+            out.append(self.tx.read_samples(512))
+        if was_waiting:
+            # the frame tail synthesized past the queue-empty edge may
+            # still be buffered: include it, so the air carries the packet
+            out.append(self.tx.read_samples(self.tx.samples_ahead))
+        return (np.concatenate(out) if out
+                else np.zeros(0, np.complex64))
+
+    def wait_for_tx_to_complete(self) -> np.ndarray:
+        """Drain all queued frames to samples, then what is still buffered
+        and the synthesizer's memory (the end-of-burst flush)."""
+        out = []
+        while not all(self.tx.is_channel_ready(c)
+                      for c in range(self.num_channels)):
+            out.append(self.tx.read_samples(512))
+        flush = 2 * self.tx.chz.P
+        out.append(self.tx.read_samples(
+            self.tx.samples_ahead + 2 * self.num_channels * flush))
+        return (np.concatenate(out) if out
+                else np.zeros(0, np.complex64))
+
+    # async TX (start_tx/stop_tx): production runs ahead of the consumer on
+    # the worker thread
+    def start_tx(self, chunk: int = 256, max_ahead: int = 65536):
+        self.tx.start_worker(chunk=chunk, max_ahead=max_ahead)
+
+    def stop_tx(self):
+        self.tx.stop_worker()
+
+    def read_tx_samples(self, n: int) -> np.ndarray:
+        return self.tx.read_samples(n)

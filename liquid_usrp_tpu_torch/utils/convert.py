@@ -3,7 +3,8 @@
 The port keeps the JAX state and result NamedTuples' class and field names
 (``McrxState``, ``MctxState``, ``OfdmSyncState``, ``NcoState``,
 ``PfbchState``, ``FrameResults``, ``FlexSyncState``, ``FlexResults``,
-``GmskSyncState``, ``FirState``, ``ResampState``, ``MsresampState``), so
+``GmskSyncState``, ``FirState``, ``ResampState``, ``MsresampState``,
+``WlanSyncState``, ``WlanResults``), so
 one conversion moves a mid-stream state across: :func:`from_jax_tree` takes a tree whose leaves
 are NumPy arrays (``jax.device_get`` of a JAX state, or what
 ``liquid_usrp_tpu/utils/checkpoint.py`` saves) and builds the port's
@@ -21,6 +22,7 @@ import torch
 from ..framing.flexframe_sync import FlexResults, FlexSyncState
 from ..framing.gmskframe import GmskSyncState
 from ..framing.ofdm_sync import FrameResults, OfdmSyncState
+from ..framing.wlan import WlanResults, WlanSyncState
 from ..models.multichannel import McrxState, MctxState
 from ..ops.fir import FirState
 from ..ops.nco import NcoState
@@ -32,7 +34,7 @@ __all__ = ["from_jax_tree", "to_numpy_tree"]
 _CLASSES = {c.__name__: c for c in (
     McrxState, MctxState, OfdmSyncState, NcoState, PfbchState, FrameResults,
     FlexSyncState, FlexResults, GmskSyncState, FirState, ResampState,
-    MsresampState)}
+    MsresampState, WlanSyncState, WlanResults)}
 
 
 def _is_namedtuple(x) -> bool:

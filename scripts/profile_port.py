@@ -32,7 +32,11 @@ resampled at 0.5 as ``flexframe_rx`` does), and measures:
   FEC: the Viterbi under ``--conv``) and results with the host copy; the
   Viterbi's own stage inside that dispatch (``chip_smoke.viterbi_ms``);
   and the Viterbi's peak device memory at the largest input a dispatch
-  gives it (v29, 32 rows at the ``fec1`` stage's budget).
+  gives it (v29, 32 rows at the ``fec1`` stage's budget);
+* for the 802.11a receiver, on ``wlanframe_tx`` streams (rate 6, 200 and
+  1,500-byte PSDUs): the same for one detecting block at ``-p 256`` and
+  ``-p 1500``, its stages split into detect, the SIGNAL and the DATA soft
+  Viterbi, and the rest of the candidate decode with the host copy.
 
 Steps after the first feed the same chunk from the carried state; their
 results are not checked (``chip_smoke.py`` checks decoding).  Prints one
@@ -433,6 +437,81 @@ def profile_viterbi_memory(sync, dev, rows=32):
     return rec
 
 
+def profile_wlan_block(max_psdu, stream, dev, calls=3, prof_calls=1):
+    """One detecting block of the 802.11a receiver (the first block of
+    ``stream`` that decodes a frame) at a ``max_psdu`` budget: its stages
+    (detect: the metric and the candidates; the SIGNAL and the DATA soft
+    Viterbi, each timed inside the block by CUDA events with a sync before
+    and after; the rest of the candidate decode and the host copy), the
+    block's wall time (a loop of its own), device busy time and share,
+    kernels per block, peak memory and the top device kernels."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    from liquid_usrp_tpu_torch.ops.corr import find_candidates
+    sync = wlan.make_wlan_sync(max_psdu=max_psdu)
+    st0, blk = cs.first_detecting_block(stream, sync, dev)
+
+    def one():
+        _, res = wlan.wlan_sync_block(sync, st0, blk)
+        return [v.cpu() for v in res]
+
+    for _ in range(2):
+        one()
+    vit = {"signal_viterbi": 0.0, "data_viterbi": 0.0}
+    orig = wlan._viterbi_soft
+
+    def timed_viterbi(pairs):
+        torch.cuda.synchronize()
+        a = _event()
+        bits = orig(pairs)
+        b = _event()
+        torch.cuda.synchronize()
+        name = "signal_viterbi" if pairs.shape[1] == 24 else "data_viterbi"
+        vit[name] += a.elapsed_time(b) / calls
+        return bits
+
+    detect = block = 0.0
+    wlan._viterbi_soft = timed_viterbi
+    try:
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            e0 = _event()
+            ext = torch.cat([st0.tail, blk])
+            find_candidates(wlan._wlan_metric(sync, ext), wlan._DET_WIN,
+                            sync.block_size, sync.threshold,
+                            sync.max_frames)
+            e1 = _event()
+            torch.cuda.synchronize()
+            detect += e0.elapsed_time(e1) / calls
+            t0 = time.perf_counter()
+            one()
+            block += (time.perf_counter() - t0) * 1e3 / calls
+    finally:
+        wlan._viterbi_soft = orig
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    peak = torch.cuda.max_memory_allocated()
+    kev = _profile(one, prof_calls)
+    busy_ms = sum(_device_us(e) for e in kev) / prof_calls / 1e3
+    top = sorted(kev, key=_device_us, reverse=True)[:8]
+    stages = dict(detect=detect, **vit)
+    stages["rest_and_host_copy"] = block - sum(stages.values())
+    rec = dict(max_psdu=max_psdu, trellis_steps=24 + sync.nb,
+               candidates=sync.max_frames, stage_ms=stages,
+               block_wall_ms=wall_ms, device_busy_ms=busy_ms,
+               busy_share_of_wall=busy_ms / wall_ms,
+               kernels_per_block=sum(e.count for e in kev) / prof_calls,
+               peak_mem_bytes=peak,
+               top=[(e.key[:90], _device_us(e) / prof_calls / 1e3,
+                     e.count / prof_calls) for e in top])
+    print(f"WLAN block -p {max_psdu}", json.dumps(rec), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_port.json"))
@@ -440,7 +519,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
+    from liquid_usrp_tpu_torch.apps import wlanframe_tx
     from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    from liquid_usrp_tpu_torch.io.streams import read_iq
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     out = {"card": cs.card()}
@@ -463,6 +544,11 @@ def main(argv=None) -> int:
         gm_stream = cs.gm_transmit(str(Path(tmpdir) / "gm.iq"))
         gm_conv_stream = cs.gm_transmit(str(Path(tmpdir) / "gmc.iq"), "-c",
                                         "v27", "-k", "none")
+        wlan_streams = {}
+        for p in (cs.WLAN_PSDU, cs.WLAN_MTU):
+            f = str(Path(tmpdir) / f"w{p}.iq")
+            cs.run_app(wlanframe_tx.main, ["-o", f, "-N", "2", "-P", str(p)])
+            wlan_streams[p] = read_iq(f)
     out["kernels"] = profile_kernels(s1, blocks, dev)
     out["sc_kernels"] = profile_sc_kernels(cs.sc_windows(params, stream,
                                                          dev))
@@ -474,6 +560,9 @@ def main(argv=None) -> int:
     out["gmsk_dispatch"] = profile_gm_dispatch(gm_stream, dev, False)
     out["gmsk_conv_dispatch"] = profile_gm_dispatch(gm_conv_stream, dev,
                                                     True)
+    out["wlan_block"] = {p: profile_wlan_block(
+        {cs.WLAN_PSDU: 256}.get(p, p), wlan_streams[p], dev)
+        for p in wlan_streams}
     path = Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

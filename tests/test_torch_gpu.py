@@ -547,3 +547,104 @@ def test_measurement_ops_cuda_match_cpu(cuda):
                  for r in rings]
     assert torch.equal(rings[0].buf.cpu(), rings[1].buf)
     assert int(rings[0].count) == 1024
+
+
+@pytest.mark.gpu
+def test_wlan_viterbi_and_demap_cuda_match_cpu(cuda):
+    """The WLAN soft Viterbi gives the CPU's bits on the same pairs (with
+    erasures and exact ties); the soft demap is within 1e-6 of max |LLR|."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    rng = np.random.default_rng(11)
+    pairs = rng.normal(size=(4, 2300, 2)).astype(np.float32)
+    pairs[1] = np.round(pairs[1] * 2) / 2
+    pairs[2, 1000:] = 0.0
+    pairs[3, rng.random((2300, 2)) < 0.3] = 0.0
+    p = torch.as_tensor(pairs)
+    assert torch.equal(wlan._viterbi_soft(p.to(cuda)).cpu(),
+                       wlan._viterbi_soft(p))
+    pts = torch.as_tensor((rng.normal(size=5000) + 1j *
+                           rng.normal(size=5000)).astype(np.complex64))
+    for bpsc in (1, 2, 4, 6):
+        want = wlan._demap_soft(pts, bpsc)
+        got = wlan._demap_soft(pts.to(cuda), bpsc).cpu()
+        assert float((got - want).abs().max()) <= \
+            1e-6 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_wlan_sync_cuda_matches_cpu(cuda):
+    """Frames at three rates through CFO and noise: the card's sync gives
+    the CPU's rows (flags, rate, length, PSDU, t_start exact; cfo within
+    1e-5, rssi within 1e-4 dB); no OFDM kernel launches."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    rng = np.random.default_rng(12)
+    stream = np.zeros(30000, np.complex64)
+    sent = []
+    for pos, rate in ((900, 6), (9000, 24), (20000, 54)):
+        psdu = rng.integers(0, 256, 200, dtype=np.uint8)
+        f = wlan.wlan_assemble(rate, psdu, device="cpu").numpy()
+        stream[pos:pos + len(f)] = f
+        sent.append((pos, rate, psdu))
+    stream = (stream * np.exp(0.01j * np.arange(30000)) + 0.02 * (
+        rng.normal(size=30000) + 1j * rng.normal(size=30000))
+              ).astype(np.complex64)
+    kernels.reset_launch_counts()
+    got = wlan.wlan_sync(stream, device=cuda)
+    assert sum(kernels.launches.values()) == 0
+    want = wlan.wlan_sync(stream, device="cpu")
+    assert [(d["start"], d["rate"]) for d in got] == \
+        [(p, r) for p, r, _ in sent] == [(d["start"], d["rate"]) for d in want]
+    for g, w, (_, _, psdu) in zip(got, want, sent):
+        assert g["psdu_valid"] and w["psdu_valid"]
+        assert np.array_equal(g["psdu"], psdu)
+        assert np.array_equal(w["psdu"], psdu)
+        assert abs(g["cfo"] - w["cfo"]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_run_pipelined_and_tx_worker_on_the_card(cuda):
+    """``run_pipelined`` over the multichannel step on the card decodes the
+    frames the TX worker produced on another thread, through kernel B1."""
+    from liquid_usrp_tpu_torch.io.pipeline import run_pipelined
+    from liquid_usrp_tpu_torch.models.multichannel import (Mcrx,
+                                                           MultichannelTx)
+    N = 2
+    tx = MultichannelTx(N, device=cuda)
+    rng = np.random.default_rng(13)
+    sent = {}
+    tx.start_worker(chunk=256, max_ahead=16384)
+    try:
+        for ch in range(N):
+            payload = rng.integers(0, 256, 200, dtype=np.uint8)
+            tx.update_data(ch, np.full(8, ch, np.uint8), payload)
+            sent[ch] = payload
+        chunks = []
+        while not all(tx.is_channel_ready(c) for c in range(N)):
+            chunks.append(tx.read_samples(4096))
+    finally:
+        tx.stop_worker()
+    chunks.append(tx.read_samples(tx.samples_ahead + 2 * N * 8192))
+    mix = np.concatenate(chunks)
+    sync = ofdm_sync.make_sync(ofdm.make_ofdm_params(48, 6, 4),
+                               block_size=4096, max_payload=256,
+                               use_pallas=1)
+    rx = Mcrx(N, sync, None, cuda)
+    g = 2 * N * 4096
+    mix = np.concatenate([mix, np.zeros(-len(mix) % g + 4 * g,
+                                        np.complex64)])
+    got = {}
+
+    def on_results(res):
+        det = res.detected.cpu().numpy()
+        for ch, i in zip(*np.nonzero(det)):
+            if bool(res.payload_valid[ch, i]):
+                n = int(res.payload_len[ch, i])
+                got[int(ch)] = res.payload[ch, i, :n].cpu().numpy()
+
+    kernels.reset_launch_counts()
+    run_pipelined((mix[i:i + g] for i in range(0, len(mix), g)), rx.step,
+                  rx.init_state(), on_results)
+    assert kernels.launches["detect_metric_xcorr_onepass"] > 0
+    assert set(got) == set(sent)
+    for ch, payload in sent.items():
+        assert np.array_equal(got[ch], payload)
