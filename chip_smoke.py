@@ -12,7 +12,8 @@ Reed-Solomon FEC layer (``--conv``), the soft-decision decode path
 ``asgram_rx``, ``narrowband_tx``, ``halfduplex_txrx``,
 ``fullduplex_txrx``), the streaming plumbing (``NativeWriter``,
 ``run_pipelined``, the TX worker, ``AsyncTxProducer``,
-``multichannel_txrx``) and the 802.11a path (``wlanframe_tx/rx``):
+``multichannel_txrx``), the 802.11a path (``wlanframe_tx/rx``) and the
+parallel layer (``parallel/``: worlds of ranks that share the card):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``liquid_usrp_tpu_torch/csrc``;
@@ -182,7 +183,34 @@ Reed-Solomon FEC layer (``--conv``), the soft-decision decode path
    with ``NativeReader``) in turns (direct, pipelined, pipelined, direct)
    in samples/s, the TX worker's output samples/s, WLAN input samples/s over the default stream, and WLAN ms
    per detecting block with the DATA Viterbi's ms, at ``-p 256`` and
-   ``-p 1500``.
+   ``-p 1500``;
+27. the parallel layer, after the parent built the kernels, in spawned
+   worlds whose ranks each set the card as their device and hold one
+   intra-op thread: a 2x2 ``(time, channel)`` world of 4 ranks that share
+   ``cuda:0`` over gloo (their collectives through pinned host copies;
+   on a host with a card per rank, NCCL on ``cuda:{rank}``, as
+   ``distributed.spawn`` chooses) runs ``sharded_mcrx`` (the all-to-all receiver, ``use_pallas=1``, 1
+   block of 65,536 a fine chunk) and ``make_sharded_mcrx``
+   (``use_pallas=2``, 2 blocks a time chunk) over the bench mixture and
+   its flush chunk (2,097,152 samples): 88/88 with ``bench.py``'s
+   fingerprints, every rank launching B1 (B2 at level 2) and no other
+   kernel; ``n_steps=2`` over the mixture and three flush chunks: 88/88
+   and the one-shot run's rows; ``make_sharded_mctx`` on the bench
+   baseband within 1e-5 of its peak of ``make_mctx_step``'s mixture, then
+   88/88 through the single-process receiver; on a 1-D ``time`` mesh of
+   the same 4 ranks, ``make_time_sharded_sync`` over the app-default
+   streams of phases 7 (the legacy detector at level 1: B3 in every
+   rank), 12, 16 and 25, each zero-padded to 4 equal chunks with one
+   overlap after the stream: every frame decoded (40/40, 40/40, 40/40,
+   5/5) and the detected rows equal to the port's sequential block loop
+   on the card (rows exact, ``rssi`` within 1e-3 dB, ``evm`` 0.05 dB,
+   ``cfo`` 1e-5); a 1-rank NCCL world on ``cuda:0``: ``sharded_mcrx``
+   88/88 (B1), rows equal to the gloo world's; then decode-verified
+   samples/s of both worlds beside the single-process ``make_mcrx_step``
+   loop in turns (single, gloo, NCCL, single), each world's share of a
+   rank's run spent in collectives, and the transport.  These are ranks
+   sharing one card, not a scaling measurement.  A rank that fails fails
+   the phase; its launches count toward B4/B5's zero check.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -291,6 +319,11 @@ WLAN_MTU, WLAN_MTU_FRAMES = 1500, 3
 WLAN_CFO_ATOL, WLAN_RSSI_ATOL = 1e-5, 1e-4
 WLAN_METRIC_ATOL = 1e-5
 WLAN_TIMED_RUNS = 2
+# the parallel layer (phase 27): a 2x2 world of ranks that share the card
+# over gloo, and a 1-rank NCCL world
+PAR_RANKS = 4
+PAR_TIMED_RUNS = 2             # per world, after its checks
+PAR_TIMEOUT_S = 600            # per spawned world
 
 
 def card() -> str:
@@ -390,13 +423,12 @@ def work(name, rows, length, **shape):
     return prefix + rows * n_out * 12, rows * n_out * 10
 
 
-def build_mixture(params, props, total, margin, dev, cfos=None):
-    """``bench.py::_build_loaded_mixture`` with the port's TX: per-channel
+def bench_streams(params, props, total, margin, dev, cfos=None):
+    """The per-channel baseband of ``bench.py::_build_loaded_mixture``:
     back-to-back frames (random headers/payloads from ``default_rng(0)``)
-    through the m=13 synthesizer -> (mixture [2N*total], payloads).
-    ``cfos``: a frequency offset (rad/sample) per channel stream."""
+    -> (streams [total, N], payloads).  ``cfos``: a frequency offset
+    (rad/sample) per channel stream."""
     from liquid_usrp_tpu_torch.framing import ofdm
-    from liquid_usrp_tpu_torch.models.multichannel import make_mctx_step
     rng = np.random.default_rng(0)
     flen = ofdm.frame_length(params, props, PAYLOAD)
     gap = 128
@@ -419,6 +451,16 @@ def build_mixture(params, props, total, margin, dev, cfos=None):
         n = np.arange(total)
         for ch, cfo in enumerate(cfos):
             streams[:, ch] *= np.exp(1j * cfo * n).astype(np.complex64)
+    return streams, payloads
+
+
+def build_mixture(params, props, total, margin, dev, cfos=None):
+    """``bench.py::_build_loaded_mixture`` with the port's TX:
+    :func:`bench_streams` through the m=13 synthesizer -> (mixture
+    [2N*total], payloads)."""
+    from liquid_usrp_tpu_torch.models.multichannel import make_mctx_step
+    streams, payloads = bench_streams(params, props, total, margin, dev,
+                                      cfos)
     init, step = make_mctx_step(N, dev)
     Y = np.zeros((total, 2 * N), np.complex64)
     Y[:, :N] = streams
@@ -2525,6 +2567,432 @@ def time_wlan(ctx, dev, label):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the parallel layer on ranks that share the card
+# ---------------------------------------------------------------------------
+
+def time_syncs():
+    """The synchronizers of the time-sharded runs: the single-channel OFDM
+    app defaults at the legacy detector, level 1 (B3), and the flexframe,
+    GMSK and 802.11a RX app defaults."""
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync, wlan
+    return {
+        "ofdm": ofdm_sync.make_sync(
+            ofdm.make_ofdm_params(M, CP, TAPER), block_size=SC_BLOCK,
+            max_payload=SC_MAX_PAYLOAD, use_pallas=1, xcorr_detect=False),
+        "flex": ff_sync(), "gmsk": gm_sync(), "wlan": wlan.make_wlan_sync()}
+
+
+def time_padded(stream, sync, n_ranks=PAR_RANKS):
+    """``stream`` padded with zeros to ``n_ranks`` equal chunks of whole
+    blocks, each covering the sync's overlap, with at least one overlap of
+    zeros after the stream: (padded, blocks per rank)."""
+    bs = sync.block_size
+    cb = max(-(-sync.overlap // bs),
+             -(-(len(stream) + sync.overlap) // (n_ranks * bs)))
+    x = np.zeros(n_ranks * cb * bs, np.complex64)
+    x[:len(stream)] = stream
+    return x, cb
+
+
+def sequential_rows(sync, stream, dev):
+    """The port's own block loop (each family's ``*_sync_block``) over a
+    host stream on ``dev``: the results of every block stacked as host
+    arrays ``[n_blocks * max_frames, ...]``, the rows the time-sharded run
+    gives."""
+    from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
+    from liquid_usrp_tpu_torch.framing import gmskframe as gf
+    from liquid_usrp_tpu_torch.framing import ofdm_sync, wlan
+    block_fn, init = {
+        ofdm_sync.OfdmSync: (ofdm_sync.sync_block, ofdm_sync.sync_init),
+        fs.FlexSync: (fs.flex_sync_block, fs.flex_sync_init),
+        gf.GmskSync: (gf.gmsk_sync_block, gf.gmsk_sync_init),
+        wlan.WlanSync: (wlan.wlan_sync_block, wlan.wlan_sync_init),
+    }[type(sync)]
+    bs = sync.block_size
+    blocks = torch.as_tensor(stream.reshape(-1, bs), device=dev)
+    state, rows = init(sync, dev), []
+    for blk in blocks:
+        state, res = block_fn(sync, state, blk)
+        rows.append(res)
+    return {f: torch.cat([getattr(r, f) for r in rows]).cpu().numpy()
+            for f in rows[0]._fields}
+
+
+def host_results(res) -> dict:
+    return {f: np.asarray(v) for f, v in zip(res._fields, res)}
+
+
+def keyed_rows(res) -> dict:
+    """The detected rows of host results by ``(channel, t_start)`` (by
+    ``t_start`` alone for one stream)."""
+    det = res["detected"]
+    return {tuple(int(i) for i in idx[:-1]) + (int(res["t_start"][idx]),):
+            idx for idx in zip(*np.nonzero(det))}
+
+
+def rows_equal(what, got, want):
+    """Raise unless the detected rows of two host results are the same:
+    flags, lengths, scheme fields and ``t_start`` exact, the valid bytes
+    equal, ``rssi`` within 1e-3 dB, ``evm`` 0.05 dB, ``cfo`` 1e-5."""
+    kg, kw = keyed_rows(got), keyed_rows(want)
+    if kg.keys() != kw.keys():
+        raise AssertionError(f"{what}: detected rows differ: "
+                             f"{sorted(kg)[:8]} vs {sorted(kw)[:8]}")
+    tol = {"rssi": 1e-3, "evm": 0.05, "cfo": 1e-5}
+    for key, ig in kg.items():
+        iw = kw[key]
+        for f in got:
+            a, b = got[f][ig], want[f][iw]
+            if f in tol:
+                ok = abs(float(a) - float(b)) <= tol[f]
+            elif f in ("payload", "psdu"):
+                n = int(got["payload_len" if f == "payload" else "length"][ig])
+                ok = np.array_equal(a[:n], b[:n])
+            elif f == "header":
+                ok = not got["header_valid"][ig] or np.array_equal(a, b)
+            else:
+                ok = np.array_equal(a, b)
+            if not ok:
+                raise AssertionError(f"{what}: row {key} field {f}: {a} vs "
+                                     f"{b}")
+    return len(kg)
+
+
+def host_fingerprint(res, weights):
+    """:func:`fingerprint` of host results ``[N, rows]``."""
+    from types import SimpleNamespace
+    return fingerprint(
+        SimpleNamespace(payload_valid=torch.as_tensor(res["payload_valid"]),
+                        payload=torch.as_tensor(res["payload"])),
+        torch.as_tensor(weights.astype(np.int64)))
+
+
+def family_frames(name, res):
+    """The frames of a time-sharded result in the form each family's
+    check takes (``check_sc_frames``, ``check_ff_frames``, the WLAN rows
+    of ``wlan_rows``)."""
+    rows = sorted(np.nonzero(res["detected"])[0],
+                  key=lambda r: int(res["t_start"][r]))
+    if name == "wlan":
+        return [(int(res["t_start"][r]), int(res["rate"][r]),
+                 int(res["length"][r]), bool(res["signal_valid"][r]),
+                 bool(res["psdu_valid"][r]),
+                 res["psdu"][r][:int(res["length"][r])].tobytes(),
+                 float(res["cfo"][r]), float(res["rssi"][r]))
+                for r in rows]
+    frames = []
+    for r in rows:
+        payload = res["payload"][r][:int(res["payload_len"][r])]
+        frames.append(dict(
+            t=int(res["t_start"][r]), valid=bool(res["payload_valid"][r]),
+            payload_valid=bool(res["payload_valid"][r]),
+            header=res["header"][r], payload=payload,
+            cfo=float(res["cfo"][r])))
+    return frames
+
+
+def par_timed(run, x_local, rank, weights, n=PAR_TIMED_RUNS):
+    """``n`` timed runs of a sharded receiver after a barrier each: this
+    rank's wall seconds and collective seconds per run, and (rank 0) each
+    run's per-channel counts and fingerprints."""
+    import torch.distributed as dist
+    from liquid_usrp_tpu_torch.parallel import _comm
+    out = []
+    for _ in range(n):
+        dist.barrier()
+        torch.cuda.synchronize()
+        _comm.reset_stats()
+        t0 = time.perf_counter()
+        res = run(x_local)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        fp = None
+        if rank == 0:
+            cnt, f = host_fingerprint(host_results(res), weights)
+            fp = (cnt.numpy(), f.numpy() & 0xFFFFFFFF)
+        out.append((sec, _comm.stats["seconds"], _comm.stats["calls"], fp))
+    return out
+
+
+def par_bench_sync(level):
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    return ofdm_sync.make_sync(ofdm.make_ofdm_params(M, CP, TAPER),
+                               block_size=BLOCK, max_payload=MAX_PAYLOAD,
+                               max_frames=MAX_FRAMES, use_pallas=level)
+
+
+def par_world(rank, inp, weights):
+    """Phase 27 in each rank of the 2x2 world sharing the card over gloo:
+    the receivers, the transmitter, time sharding of four frame families
+    and timed runs.  Returns this rank's launches and timings, and (rank
+    0) the global results."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from liquid_usrp_tpu_torch.ops import kernels
+    from liquid_usrp_tpu_torch.parallel import distributed, stream
+    from liquid_usrp_tpu_torch.parallel.mesh import make_sdr_mesh
+    m = make_sdr_mesh()
+    tm = init_device_mesh("cuda" if dist.get_backend() == "nccl" else "cpu",
+                          (PAR_RANKS,), mesh_dim_names=("time",))
+    out = {"launches": {}, "res": {}, "backend": dist.get_backend(),
+           "device": str(distributed.local_device())}
+
+    def once(name, run, mesh, x):
+        kernels.reset_launch_counts()
+        res = run(stream.shard_for(mesh, x, run.in_spec))
+        torch.cuda.synchronize()
+        out["launches"][name] = dict(kernels.launches)
+        if rank == 0:
+            out["res"][name] = (res if isinstance(res, np.ndarray)
+                                else host_results(res))
+
+    mix = inp["mix"]
+    a2a = stream.sharded_mcrx(m, N, par_bench_sync(1), 1)
+    once("a2a", a2a, m, mix)
+    once("dup", stream.make_sharded_mcrx(m, N, par_bench_sync(2), 2), m,
+         mix)
+    once("piped", stream.sharded_mcrx(m, N, par_bench_sync(1), 1,
+                                      n_steps=2), m,
+         np.concatenate([mix, inp["flush"], inp["flush"]]).reshape(2, -1))
+    once("mctx", stream.make_sharded_mctx(
+        m, N, inp["tx_streams"].shape[1] // PAR_RANKS), m,
+        inp["tx_streams"])
+    for name, sync in time_syncs().items():
+        x, cb = inp["time"][name]
+        once(f"time_{name}", stream.make_time_sharded_sync(tm, sync, cb),
+             tm, x)
+    out["timed"] = par_timed(a2a, stream.shard_for(m, mix, a2a.in_spec),
+                             rank, weights)
+    return out
+
+
+def par_nccl(rank, inp, weights):
+    """Phase 27 in a 1-rank NCCL world on the card: ``sharded_mcrx`` on a
+    1x1 mesh, checked and timed."""
+    import torch.distributed as dist
+    from liquid_usrp_tpu_torch.ops import kernels
+    from liquid_usrp_tpu_torch.parallel import stream
+    from liquid_usrp_tpu_torch.parallel.mesh import make_sdr_mesh
+    m = make_sdr_mesh()
+    run = stream.sharded_mcrx(m, N, par_bench_sync(1), PAR_RANKS)
+    x = stream.shard_for(m, inp["mix"], run.in_spec)
+    kernels.reset_launch_counts()
+    res = host_results(run(x))
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "res": res,
+            "launches": dict(kernels.launches),
+            "timed": par_timed(run, x, rank, weights)}
+
+
+def single_loop(mix, sync, weights, expected, dev):
+    """Seconds of the single-process ``make_mcrx_step`` loop over ``mix``,
+    after one warm-up loop; both decode-verified."""
+    from liquid_usrp_tpu_torch.models.multichannel import make_mcrx_step
+    init, step = make_mcrx_step(N, sync, dev)
+    w64 = torch.as_tensor(weights.astype(np.int64), device=dev)
+    g = 2 * N * sync.block_size
+    x = torch.as_tensor(mix, device=dev)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, cnt, fp = init(), 0, 0
+        for lo in range(0, len(mix), g):
+            st, res = step(st, x[lo:lo + g])
+            c, f = fingerprint(res, w64)
+            cnt, fp = cnt + c, fp + f
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check_decoded("single-process make_mcrx_step loop", cnt, fp,
+                      expected)
+    return sec
+
+
+def check_par_launches(what, runs, kernel):
+    """Every rank launched ``kernel`` and no other kernel of B1-B5."""
+    for rank, launched in enumerate(runs):
+        other = {k: v for k, v in launched.items() if k != kernel and v}
+        if other or (kernel is not None and launched[kernel] <= 0):
+            raise AssertionError(f"{what}, rank {rank}: launched "
+                                 f"{launched}, expected {kernel} only")
+
+
+def run_parallel(ctx, dev, tmpdir, label):
+    """The parallel layer on the card (phase 27): a 2x2 world of ranks
+    that share it over gloo and a 1-rank NCCL world, checked against the
+    single-process paths, with timings in turns.  Returns every rank's
+    launch counts."""
+    from liquid_usrp_tpu_torch.framing import flexframe as ff
+    from liquid_usrp_tpu_torch.parallel import distributed
+    t_phase = time.perf_counter()
+    weights, expected = ctx["weights"], ctx["expected"]
+    mix = np.concatenate([ctx["blocks"].cpu().numpy(),
+                          ctx["flush"].cpu().numpy()])
+    sync1 = par_bench_sync(1)
+    syncs = time_syncs()
+    # the app-default streams of phases 7, 12, 16 and 25 and the rows of
+    # the port's own block loop over them (the sequential reference)
+    sc_stream, sc_sent = sc_transmit(str(Path(tmpdir) / "par_sc.iq"))
+    _, ff_stream = ff_transmit(str(Path(tmpdir) / "par_ff.iq"), dev)
+    gm_stream = gm_transmit(str(Path(tmpdir) / "par_gm.iq"))
+    raw = {"ofdm": sc_stream, "flex": ff_stream, "gmsk": gm_stream,
+           "wlan": ctx["wlan_stream"]}
+    t0 = time.perf_counter()
+    padded = {k: time_padded(v, syncs[k]) for k, v in raw.items()}
+    seq = {k: sequential_rows(syncs[k], padded[k][0], dev) for k in raw}
+    t_seq = time.perf_counter() - t0
+    inp = {"mix": mix, "flush": ctx["flush"].cpu().numpy(),
+           "tx_streams": np.ascontiguousarray(ctx["tx_streams"].T),
+           "time": padded}
+
+    single = [single_loop(mix, sync1, weights, expected, dev)]
+    t0 = time.perf_counter()
+    world = distributed.spawn(par_world, PAR_RANKS, inp, weights,
+                              timeout_s=PAR_TIMEOUT_S)
+    t_world = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = distributed.spawn(par_nccl, 1, inp, weights,
+                                timeout_s=PAR_TIMEOUT_S)
+    t_nccl = time.perf_counter() - t0
+    single.append(single_loop(mix, sync1, weights, expected, dev))
+
+    # the 2x2 world: gloo on ranks that share the card, NCCL where the host
+    # has a card per rank (as distributed.spawn chooses)
+    own = PAR_RANKS <= torch.cuda.device_count()
+    backend = "nccl" if own else "gloo"
+    wname = (f"2x2 {backend} world (" + ("a card per rank" if own else
+                                        f"{PAR_RANKS} ranks sharing cuda:0")
+             + ")")
+    for rank, out in enumerate(world):
+        want = (backend, f"cuda:{rank if own else 0}")
+        if (out["backend"], out["device"]) != want:
+            raise AssertionError(f"2x2 world rank {rank} on {out['backend']}"
+                                 f", {out['device']}: expected {want}")
+    res = world[0]["res"]
+    lv = {"a2a": "detect_metric_xcorr_onepass",
+          "dup": "detect_candidates_onepass",
+          "piped": "detect_metric_xcorr_onepass"}
+    for name, kernel in lv.items():
+        check_decoded(f"{wname}, {name}",
+                      *host_fingerprint(res[name], weights), expected)
+        check_par_launches(f"{wname}, {name}",
+                           [o["launches"][name] for o in world], kernel)
+    n_rows = rows_equal("n_steps=2 against one-shot", res["piped"],
+                        res["a2a"])
+    b1 = [o["launches"]["a2a"]["detect_metric_xcorr_onepass"]
+          for o in world]
+    b2 = [o["launches"]["dup"]["detect_candidates_onepass"] for o in world]
+    print(f"parallel, {wname}: sharded_mcrx (a2a, use_pallas=1) and make_sharded_mcrx "
+          f"(use_pallas=2) decode {sum(expected[0])}/{sum(expected[0])} "
+          f"over {len(mix)} samples with bench.py's fingerprints; B1 "
+          f"launched {b1} by the ranks, B2 {b2}; n_steps=2 over the "
+          f"mixture and three flush chunks gives the one-shot run's "
+          f"{n_rows} rows; {t_world:.1f} s for the world", flush=True)
+
+    # the sharded TX against the sequential synthesizer, then decoded
+    tx_mix, ref = res["mctx"], ctx["mixture"]
+    tx_err = float(np.abs(tx_mix - ref).max() / np.abs(ref).max())
+    if not tx_err <= 1e-5:
+        raise AssertionError(f"make_sharded_mctx: {tx_err:.2e} of the "
+                             f"peak from make_mctx_step's")
+    check_par_launches("make_sharded_mctx", [o["launches"]["mctx"]
+                                             for o in world], None)
+    from liquid_usrp_tpu_torch.models.multichannel import \
+        make_mcrx_batched_step
+    init, step = make_mcrx_batched_step(N, sync1, N_BLOCKS, dev)
+    w64 = torch.as_tensor(weights.astype(np.int64), device=dev)
+    tx_blocks = torch.as_tensor((tx_mix + 0.01 * ctx["noise"]).reshape(-1)
+                                .astype(np.complex64), device=dev)
+    n_flush = -(-(sync1.overlap // sync1.block_size + 1) // N_BLOCKS)
+    total, _, _ = decode_stream(step, init, tx_blocks, ctx["flush"],
+                                n_flush, w64)
+    check_decoded("make_sharded_mctx -> single-process RX", *total,
+                  expected)
+    print(f"parallel, make_sharded_mctx on the 2x2 world: within "
+          f"{tx_err:.2e} of its peak of make_mctx_step's mixture, "
+          f"{sum(expected[0])}/{sum(expected[0])} through the "
+          f"single-process receiver", flush=True)
+
+    # time sharding on the 4 ranks, against the sequential block loop
+    for name in raw:
+        key = f"time_{name}"
+        got = res[key]
+        n = rows_equal(f"time-sharded {name}", got, seq[name])
+        frames = family_frames(name, got)
+        if name == "ofdm":
+            check_sc_frames("time-sharded OFDM", frames, sc_sent)
+            kernel = "detect_metric_onepass"
+        elif name == "flex":
+            check_ff_frames("time-sharded flexframe", frames,
+                            tx_draws(FF_FRAMES, FF_SEED, ff.FLEX_HEADER_USER,
+                                     FF_PAYLOAD))
+            kernel = None
+        elif name == "gmsk":
+            check_ff_frames("time-sharded GMSK", frames,
+                            tx_draws(GM_FRAMES, GM_SEED, 8, GM_PAYLOAD),
+                            exact_count=False)
+            kernel = None
+        else:
+            wlan_check_psdus("time-sharded WLAN", frames,
+                             wlan_draws(WLAN_FRAMES, WLAN_PSDU), WLAN_FRAMES)
+            kernel = None
+        check_par_launches(f"time-sharded {name}",
+                           [o["launches"][key] for o in world], kernel)
+        x, cb = padded[name]
+        print(f"parallel, time-sharded {name} on 4 ranks ({cb} blocks of "
+              f"{syncs[name].block_size} each, {len(raw[name])} samples "
+              f"padded to {len(x)}): {n} detected rows equal to the "
+              f"sequential loop's, every frame decoded; launches "
+              f"{[{k: v for k, v in o['launches'][key].items() if v} for o in world]}",
+              flush=True)
+
+    # the 1-rank NCCL world
+    if nccl["backend"] != "nccl":
+        raise AssertionError(f"1-rank world on {nccl['backend']}")
+    check_decoded("1-rank NCCL world", *host_fingerprint(nccl["res"],
+                                                         weights), expected)
+    check_par_launches("1-rank NCCL world", [nccl["launches"]],
+                       "detect_metric_xcorr_onepass")
+    rows_equal(f"1-rank NCCL against the {wname}", nccl["res"],
+               res["a2a"])
+
+    # timings (ranks sharing one card, not scaling), each run checked
+    def rates(timed):
+        for _, _, _, fp in timed[0]:          # rank 0's checks
+            for ch in range(N):
+                if (int(fp[0][ch]) != expected[0][ch] or
+                        int(fp[1][ch]) != expected[1][ch]):
+                    raise AssertionError("a timed sharded run decoded "
+                                         "other frames")
+        walls = [max(t[k][0] for t in timed) for k in range(len(timed[0]))]
+        share = [sum(t[k][1] for t in timed) / sum(t[k][0] for t in timed)
+                 for k in range(len(timed[0]))]
+        return [len(mix) / w for w in walls], share, timed[0][0][2]
+
+    gloo_sps, gloo_share, gloo_calls = rates([o["timed"] for o in world])
+    nccl_sps, nccl_share, nccl_calls = rates([nccl["timed"]])
+    single_sps = [len(mix) / s for s in single]
+    print(f"parallel timings on {label}, "
+          + ("a card per rank" if own else "ranks sharing one card (not "
+             "scaling)")
+          + f", decode-verified over {len(mix)} samples: {wname} "
+          f"{[round(v / 1e6, 4) for v in gloo_sps]} MS/s, 1-rank NCCL "
+          f"world {[round(v / 1e6, 4) for v in nccl_sps]} MS/s, the "
+          f"single-process make_mcrx_step loop "
+          f"{[round(v / 1e6, 4) for v in single_sps]} MS/s (in turns: "
+          f"single, {backend} x{PAR_TIMED_RUNS}, NCCL x{PAR_TIMED_RUNS}, "
+          f"single); collectives {[f'{v:.1%}' for v in gloo_share]} of a "
+          f"rank's run over {backend}"
+          + ("" if own else " through pinned host copies")
+          + f" ({gloo_calls} calls a run), "
+          f"{[f'{v:.1%}' for v in nccl_share]} over NCCL ({nccl_calls} "
+          f"calls, enqueue and wait); the sequential loops {t_seq:.1f} s, "
+          f"the NCCL world {t_nccl:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [l for o in world for l in o["launches"].values()] + \
+        [nccl["launches"]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2666,6 +3134,11 @@ def main() -> int:
         wlan_launch, wlan_ctx = run_wlan(dev, tmpdir, label)
         time_streaming(stream_ctx, dev, label)
         time_wlan(wlan_ctx, dev, label)
+        par_launch = run_parallel(dict(
+            blocks=blocks, flush=flush, noise=noise, weights=weights,
+            expected=expected, mixture=mixture,
+            tx_streams=bench_streams(params, props, total, margin, dev)[0],
+            wlan_stream=wlan_ctx["default"]), dev, tmpdir, label)
     # the streaming runs detect with B1 (and only B1); WLAN runs no kernel
     for what, run in stream_launch.items():
         other = {k: v for k, v in run.items()
@@ -2678,7 +3151,7 @@ def main() -> int:
           for k, v in stream_launch.items()}
     print(f"streaming runs: B1 only, launched {b1}; WLAN runs: B1-B5 "
           f"launched 0 times", flush=True)
-    path_runs += [*stream_launch.values(), wlan_launch]
+    path_runs += [*stream_launch.values(), wlan_launch, *par_launch]
     # B3 is on the single-channel path (legacy detector, level 1); B4 and
     # B5 are on no path (the JAX package calls them only from tests): their
     # counts over every path run above must be 0

@@ -16,8 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["NcoState", "nco_init", "nco_phase_ramp", "nco_mix_block",
-           "freq_to_u32"]
+__all__ = ["NcoState", "nco_init", "nco_init_at", "nco_phase_ramp",
+           "nco_mix_block", "freq_to_u32"]
 
 _TWO_PI = 2.0 * np.pi
 _TURN = float(2.0 ** 32)          # uint32 units per turn
@@ -42,6 +42,18 @@ def nco_init(freq_rad: float, phase: float = 0.0, device="cpu") -> NcoState:
         phase=torch.tensor(ph, dtype=torch.int64, device=device),
         freq=torch.tensor(freq_to_u32(freq_rad), dtype=torch.int64,
                           device=device))
+
+
+def nco_init_at(freq_rad: float, index: int, device="cpu") -> NcoState:
+    """NCO state positioned at absolute sample ``index``: the phase is
+    ``freq * (index mod 2^32)`` reduced mod 2^32, exact at any stream
+    offset.  The sharded builders compute each rank's global index on the
+    host, so the arithmetic is on Python ints."""
+    f = freq_to_u32(freq_rad)
+    return NcoState(
+        phase=torch.tensor(f * (int(index) & _MASK) & _MASK,
+                           dtype=torch.int64, device=device),
+        freq=torch.tensor(f, dtype=torch.int64, device=device))
 
 
 def nco_phase_ramp(state: NcoState, n: int):

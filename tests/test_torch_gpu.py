@@ -31,6 +31,12 @@ the window energy is at least 100x the silence floor; ``msresamp_block`` with eq
 outputs within 1e-5 of max |y|; the batched sync decoding every frame, and
 candidates past a window's end reading clamped indices.
 
+The parallel layer: a 2-rank gloo world that shares the card runs
+``sharded_mcrx`` at detect level 1; its rows equal the single-process
+batched receiver's on the card in the detected/valid-masked fields
+(``rssi`` atol 1e-3 dB, ``evm`` 0.05 dB, ``cfo`` 1e-5), and both ranks
+launch B1 (the rank functions are in ``tests/torch_parallel_ranks.py``).
+
 The soft decode path and the measurement ops run no kernel either: soft
 LLRs within 1e-6 of max |LLR| of the CPU's with equal signs beyond, Golay
 ML equal to the CPU except near-ties and unchanged at any float32 matmul
@@ -648,3 +654,70 @@ def test_run_pipelined_and_tx_worker_on_the_card(cuda):
     assert set(got) == set(sent)
     for ch, payload in sent.items():
         assert np.array_equal(got[ch], payload)
+
+
+@pytest.mark.gpu
+def test_sharded_mcrx_ranks_share_the_card(cuda):
+    """Two ranks on the one card, over gloo (their tensors cross through
+    pinned host copies): the all-to-all receiver's rows equal the
+    single-process receiver's over the same mixture, and each rank
+    launched B1."""
+    import torch_parallel_ranks as ranks
+    from liquid_usrp_tpu_torch.models.multichannel import (
+        make_mcrx_batched_step, make_mctx_step)
+    from liquid_usrp_tpu_torch.parallel import distributed
+    N, bs, cb = 4, 4096, 2
+    cfg = {"N": N, "chunk_blocks": cb,
+           "sync": dict(block_size=bs, max_payload=128, max_frames=8,
+                        use_pallas=1)}
+    T = 2 * cb * bs                     # one time row of a 1x2 mesh
+    params = ofdm.make_ofdm_params(48, 6, 4)
+    rng = np.random.default_rng(17)
+    Y = np.zeros((T, 2 * N), np.complex64)
+    sent = {}
+    for ch in range(N):
+        for pos in (300 + 200 * ch, 4500 + 300 * ch, 9000 + 100 * ch):
+            p = rng.integers(0, 256, 100, dtype=np.uint8)
+            w = ofdm.assemble_frame(
+                params, ofdm.default_props(),
+                torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+                torch.as_tensor(p)).numpy()
+            Y[pos:pos + len(w), ch] = w
+            sent[(ch, p.tobytes())] = pos
+    init, step = make_mctx_step(N, cuda)
+    _, y = step(init(), torch.as_tensor(Y, device=cuda))
+    mixture = y.cpu().numpy()
+    outs = distributed.spawn(ranks.card_sharded_mcrx, 2, cfg, mixture,
+                             backend="gloo", timeout_s=600)
+    for out in outs:
+        assert out["backend"] == "gloo"
+        assert out["device"].startswith("cuda")
+        assert out["launches"]["detect_metric_xcorr_onepass"] > 0
+        assert not any(v for k, v in out["launches"].items()
+                       if k != "detect_metric_xcorr_onepass")
+    got = outs[0]["res"]
+    sync = ofdm_sync.make_sync(params, **cfg["sync"])
+    rinit, rstep = make_mcrx_batched_step(N, sync, 2 * cb, cuda)
+    _, res = rstep(rinit(), torch.as_tensor(mixture, device=cuda))
+    want = {f: v.reshape((N, -1) + tuple(v.shape[3:])).cpu().numpy()
+            for f, v in res._asdict().items()}
+    assert got["detected"].shape == want["detected"].shape
+
+    def keyed(r):
+        return {(int(ch), int(r["t_start"][ch, i])): (ch, i)
+                for ch, i in zip(*np.nonzero(r["detected"]))}
+    kg, kw = keyed(got), keyed(want)
+    assert kg.keys() == kw.keys()
+    decoded = set()
+    for key, ig in kg.items():
+        iw = kw[key]
+        for f in ("header_valid", "payload_valid", "payload_len"):
+            assert got[f][ig] == want[f][iw], (key, f)
+        for f, tol in (("rssi", 1e-3), ("evm", 0.05), ("cfo", 1e-5)):
+            assert abs(got[f][ig] - want[f][iw]) <= tol, (key, f)
+        if got["payload_valid"][ig]:
+            n = int(got["payload_len"][ig])
+            assert np.array_equal(got["payload"][ig][:n],
+                                  want["payload"][iw][:n])
+            decoded.add((key[0], got["payload"][ig][:n].tobytes()))
+    assert decoded == set(sent)
