@@ -210,7 +210,31 @@ parallel layer (``parallel/``: worlds of ranks that share the card):
    loop in turns (single, gloo, NCCL, single), each world's share of a
    rank's run spent in collectives, and the transport.  These are ranks
    sharing one card, not a scaling measurement.  A rank that fails fails
-   the phase; its launches count toward B4/B5's zero check.
+   the phase; its launches count toward B4/B5's zero check;
+28. (run after 23) the receiver-fidelity sweep (``apps/ber_sweep.py``)
+   at its own configs (M=48, ``block_size=8192``, ``max_frames=4``, 200-byte
+   payloads, CFO 0.001 rad/sample, 8 blocks a dispatch, the noise from a
+   generator on the card), held to the JAX repo's curves
+   (``docs/ber_*.json``, 200 frames a point): (a) uncoded OFDM (level 1,
+   B1), flexframe and GMSK at 200 frames at each point of the JAX
+   waterfall (PER 0.02-0.95) and the first point below 1 % after it: the
+   port's PER at s must lie between the JAX curve's (log-interpolated) at
+   s + 0.5 dB and at s - 0.5 dB, and its detections between the curve's at
+   s - 0.5 and s + 0.5 dB, each bound widened by 3 binomial standard
+   deviations of the port's frame count; (b) OFDM at levels 0, 1 (B1) and
+   2 (B2) on the same noisy streams at 7 and 8 dB (around 10 % PER): level
+   1 within one detection of level 0 and its ``payload_valid`` differing
+   from level 0's in at most 2 frames (level 2's flips printed), B1 and
+   B2 launched once in every dispatch (the wrappers' counts), each held to
+   its plain version at the sweep's shapes (the first dispatch's windows,
+   8 x 17,330) under the limits of the main path's check, and traced by
+   ``torch.profiler`` there (one CUDA kernel a call, 100 calls, with its
+   device time); the kernel records the profiler sees over a whole point
+   are printed beside its dispatches; (c) v27 with
+   soft decisions at 2 dB (OFDM), 0 dB (flexframe) and -3 dB (GMSK), soft
+   and hard on one stream, each under rule (a) against its JAX curve, the
+   soft PER below the hard.  Its B1 and B2 launches add to the kernels
+   line; B3-B5 launch 0 times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -324,6 +348,19 @@ WLAN_TIMED_RUNS = 2
 PAR_RANKS = 4
 PAR_TIMED_RUNS = 2             # per world, after its checks
 PAR_TIMEOUT_S = 600            # per spawned world
+# the receiver-fidelity sweep (phase 28) at apps/ber_sweep.py's configs
+# (M=48, block_size=8192, max_frames=4, 200-byte payloads, cfo 0.001),
+# held to the JAX repo's curves in docs/ber_*.json (200 frames a point;
+# the current JAX package reproduces their uncoded rows and the v27 soft
+# OFDM rows at 1-2 dB within their binomial bounds: JAX_PLATFORMS=cpu
+# python scripts/ber_sweep.py {ofdm,flex,gmsk} ... --frames 200)
+FID_PAYLOAD, FID_FRAMES, FID_SOFT_FRAMES = 200, 200, 200
+FID_WATERFALL = (0.02, 0.95)   # the JAX PERs whose points are checked
+FID_SHIFT_DB = 0.5             # rule (a): PER_J(s + 0.5) <= PER <= ...
+FID_SIGMAS = 3.0               # ... PER_J(s - 0.5), each widened so
+FID_LEVEL_SNRS = (7.0, 8.0)    # OFDM: bracket 10 % PER, levels 0, 1, 2
+FID_LEVEL_FLIPS = 2            # level 1's payload_valid flips vs level 0
+FID_SOFT_SNR = {"ofdm": 2.0, "flex": 0.0, "gmsk": -3.0}
 
 
 def card() -> str:
@@ -529,6 +566,63 @@ def decode_stream(step, init, blocks, flush, n_flush, w64):
     return (cnt, fp), first, out
 
 
+def b1_vs_plain(args, what):
+    """B1's wrapper against its plain version on ``args``: the largest
+    absolute difference, which must be at most 1e-4."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    got = kernels.detect_metric_xcorr_onepass(*args)
+    torch.cuda.synchronize()
+    ref = kernels.detect_metric_xcorr_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    print(f"{what} kernel vs plain: max abs diff {err:.3e} (limit 1e-4), "
+          f"metric peak {float(ref.max()):.4f}", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"{err}")
+    return err
+
+
+def b2_vs_plain(args, what):
+    """B2's wrapper against its plain version on ``args``: the detected
+    mask identical (and not empty), the values within 1e-4, the offsets
+    within 3 samples and ``c_at`` within a relative 1e-4 of the plain lag
+    correlation at the kernel's offsets.  Returns the values' largest
+    absolute difference."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    exts, d, L = args[:3]
+    v, loc, c = kernels.detect_candidates_onepass(*args)
+    torch.cuda.synchronize()
+    vr, lr, _ = kernels.detect_candidates_plain(*args)
+    _, c_full = kernels.autocorr_metric(exts, d, L)
+    torch.cuda.synchronize()
+    det, detr = v > 0, vr > 0
+    if not torch.equal(det, detr):
+        raise AssertionError(f"{what} detected mask differs from its plain "
+                             f"version")
+    err = float((v - vr).abs().max())
+    loc_err = 0
+    for row in range(exts.shape[0]):
+        a = np.sort(loc[row][det[row]].cpu().numpy())
+        b = np.sort(lr[row][detr[row]].cpu().numpy())
+        if len(a):
+            loc_err = max(loc_err, int(np.abs(a.astype(np.int64) - b).max()))
+    # c_at against the plain lag correlation at the kernel's own offsets
+    c_ref = torch.gather(c_full, -1, loc.to(torch.int64))[det]
+    c_rel = float(((c[det] - c_ref).abs() / c_ref.abs()).max()) \
+        if bool(det.any()) else 0.0
+    print(f"{what} kernel vs plain: {int(det.sum())} detected (identical), "
+          f"vals max abs diff {err:.3e} (limit 1e-4), locs max diff "
+          f"{loc_err} (limit 3), c_at max rel diff {c_rel:.3e} (limit "
+          f"1e-4)", flush=True)
+    if not (err <= 1e-4 and loc_err <= 3 and bool(det.any())):
+        raise AssertionError(f"{what} disagrees with its plain version")
+    if not c_rel <= 1e-4:
+        raise AssertionError(f"{what} c_at disagrees with the plain lag "
+                             f"correlation: {c_rel}")
+    return err
+
+
 def check_kernels(sync, rx, blocks):
     """Each kernel vs its plain version at the main path's shapes (the
     extended windows of the first chunk).  Returns per-kernel stats."""
@@ -546,44 +640,8 @@ def check_kernels(sync, rx, blocks):
     b2_args = (exts, d, L, M, sync.block_size, sync.threshold,
                sync.max_frames)
 
-    got = kernels.detect_metric_xcorr_onepass(*b1_args)
-    torch.cuda.synchronize()
-    ref = kernels.detect_metric_xcorr_plain(*b1_args)
-    torch.cuda.synchronize()
-    b1_err = float((got - ref).abs().max())
-    print(f"B1 kernel vs plain: max abs diff {b1_err:.3e} (limit 1e-4), "
-          f"metric peak {float(ref.max()):.4f}", flush=True)
-    if not b1_err <= 1e-4:
-        raise AssertionError(f"B1 disagrees with its plain version: {b1_err}")
-
-    v, loc, c = kernels.detect_candidates_onepass(*b2_args)
-    torch.cuda.synchronize()
-    vr, lr, _ = kernels.detect_candidates_plain(*b2_args)
-    _, c_full = kernels.autocorr_metric(exts, d, L)
-    torch.cuda.synchronize()
-    det, detr = v > 0, vr > 0
-    if not torch.equal(det, detr):
-        raise AssertionError("B2 detected mask differs from its plain "
-                             "version")
-    b2_err = float((v - vr).abs().max())
-    loc_err = 0
-    for row in range(exts.shape[0]):
-        a = np.sort(loc[row][det[row]].cpu().numpy())
-        b = np.sort(lr[row][detr[row]].cpu().numpy())
-        if len(a):
-            loc_err = max(loc_err, int(np.abs(a.astype(np.int64) - b).max()))
-    # c_at against the plain lag correlation at the kernel's own offsets
-    c_ref = torch.gather(c_full, -1, loc.to(torch.int64))[det]
-    c_rel = float(((c[det] - c_ref).abs() / c_ref.abs()).max())
-    print(f"B2 kernel vs plain: {int(det.sum())} detected (identical), vals "
-          f"max abs diff {b2_err:.3e} (limit 1e-4), locs max diff {loc_err} "
-          f"(limit 3), c_at max rel diff {c_rel:.3e} (limit 1e-4)",
-          flush=True)
-    if not (b2_err <= 1e-4 and loc_err <= 3 and bool(det.any())):
-        raise AssertionError("B2 disagrees with its plain version")
-    if not c_rel <= 1e-4:
-        raise AssertionError(f"B2 c_at disagrees with the plain lag "
-                             f"correlation: {c_rel}")
+    b1_err = b1_vs_plain(b1_args, "B1")
+    b2_err = b2_vs_plain(b2_args, "B2")
 
     rows, length = exts.shape
     return {
@@ -2993,6 +3051,306 @@ def run_parallel(ctx, dev, tmpdir, label):
         [nccl["launches"]]
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the receiver-fidelity sweep against the JAX curves
+# ---------------------------------------------------------------------------
+
+def jax_curve(name):
+    """The rows of ``docs/ber_{name}.json``, by SNR."""
+    path = Path(__file__).resolve().parent / "docs" / f"ber_{name}.json"
+    return sorted(json.loads(path.read_text())["rows"],
+                  key=lambda r: r["snr_db"])
+
+
+def curve_at(rows, value, s, log):
+    """``value(row)`` at ``s`` dB between the rows, held flat beyond them:
+    log-linear where both neighbours are positive (``log``), else
+    linear."""
+    x = [r["snr_db"] for r in rows]
+    y = [value(r) for r in rows]
+    if s <= x[0]:
+        return y[0]
+    if s >= x[-1]:
+        return y[-1]
+    i = next(k for k in range(len(x)) if x[k] >= s)
+    t = (s - x[i - 1]) / (x[i] - x[i - 1])
+    if log and y[i - 1] > 0 and y[i] > 0:
+        return float(np.exp(np.log(y[i - 1]) + t * (np.log(y[i]) -
+                                                    np.log(y[i - 1]))))
+    return y[i - 1] + t * (y[i] - y[i - 1])
+
+
+def rule_a(what, row, rows):
+    """Rule (a): the port's PER at s lies between the JAX curve's at s +
+    0.5 dB and at s - 0.5 dB, and its detections (a fraction of the frames
+    sent) between the curve's at s - 0.5 and s + 0.5, each bound widened
+    by 3 binomial standard deviations of the port's frame count.  Returns
+    the PER window, clipped to [0, 1]."""
+    n, s = row["frames_sent"], row["snr_db"]
+
+    def sd(p):
+        p = min(max(p, 0.0), 1.0)
+        return (p * (1.0 - p) / n) ** 0.5
+
+    def window(value, log, falling):
+        a = curve_at(rows, value, s + FID_SHIFT_DB, log)
+        b = curve_at(rows, value, s - FID_SHIFT_DB, log)
+        lo, hi = (a, b) if falling else (b, a)
+        return lo - FID_SIGMAS * sd(lo), hi + FID_SIGMAS * sd(hi)
+
+    per_w = window(lambda r: r["packet_error_rate"], True, True)
+    det_w = window(lambda r: r["frames_detected"] / r["frames_sent"], False,
+                   False)
+    per, det = row["packet_error_rate"], row["frames_detected"] / n
+    if not per_w[0] <= per <= per_w[1]:
+        raise AssertionError(f"{what}: PER {per} outside rule (a)'s "
+                             f"[{per_w[0]:.4f}, {per_w[1]:.4f}]")
+    if not det_w[0] <= det <= det_w[1]:
+        raise AssertionError(f"{what}: {row['frames_detected']} detections "
+                             f"of {n} outside rule (a)'s "
+                             f"[{det_w[0] * n:.1f}, {det_w[1] * n:.1f}]")
+    return max(per_w[0], 0.0), min(per_w[1], 1.0)
+
+
+def waterfall_points(rows):
+    """The JAX curve's waterfall: PER within ``FID_WATERFALL``, and the
+    first point below 1 % after it."""
+    pts = [r["snr_db"] for r in rows
+           if FID_WATERFALL[0] <= r["packet_error_rate"] <= FID_WATERFALL[1]]
+    below = [r["snr_db"] for r in rows
+             if r["packet_error_rate"] < 0.01 and r["snr_db"] > max(pts)]
+    return pts + below[:1]
+
+
+def fid_point(bs, cfg, stream, noisy, snr, dev):
+    """(row, score, seconds, dispatches, launches) of one sweep point on
+    the card: counts reset just before, read just after."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets = bs.receive(cfg, noisy)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if noisy.device != dev:
+        raise AssertionError("the sweep's stream left the card")
+    sc = bs.score(dets, stream.positions, stream.payloads, FID_PAYLOAD)
+    return bs.row(sc, snr), sc, sec, dets.dispatches, launches
+
+
+def fid_line(what, row, jax_row, sec):
+    jper = "none" if jax_row is None else f"{jax_row['packet_error_rate']:.3f}"
+    return (f"{what} at {row['snr_db']:5.1f} dB: {row['frames_sent']} "
+            f"frames, {row['frames_detected']} detected, "
+            f"{row['header_errors']} header errors, PER "
+            f"{row['packet_error_rate']:.3f} (JAX {jper}), BER "
+            f"{row['payload_ber']:.3e}, {sec:.2f} s")
+
+
+def fid_jax_row(rows, snr):
+    return next((r for r in rows if r["snr_db"] == snr), None)
+
+
+def fid_profiled(bs, cfg, stream, noisy, snr, dev, kernel):
+    """A sweep point whose every dispatch must launch ``kernel`` once by
+    the wrapper's count, and no other kernel of B1-B5.  Then, at the
+    sweep's own shapes (the extended windows of the first dispatch, which
+    holds frames), the wrapper against its plain version under
+    ``check_kernels``' limits and the kernel traced by ``torch.profiler``:
+    every one of ``DEVICE_ITERS`` wrapper calls must show one launch of the
+    CUDA kernel (``kernel_device_us``).  Last, the point's dispatches run
+    once more under the profiler, and the kernel records it saw are
+    reported beside the dispatches (the wrappers' counts are the check: a
+    profiler window over a whole point lost a dispatch's record in most
+    runs made after phases 24-27).  Returns the point's (row, score,
+    seconds, dispatches, launches), the kernel's device microseconds at
+    these shapes, its error against the plain version and the profiler's
+    (records, dispatches) over the path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    for res in bs.dispatches(cfg, noisy):
+        results.append(res)
+        counted = dict(kernels.launches)
+        kernels.reset_launch_counts()
+        if counted[kernel] != 1 or any(v for k, v in counted.items()
+                                       if k != kernel):
+            raise AssertionError(
+                f"level {cfg.sync.use_pallas} at {snr} dB, dispatch "
+                f"{len(results)}: launched {counted}, expected {kernel} "
+                f"once")
+    sec = time.perf_counter() - t0
+    n = len(results)
+    dets = bs.collect(results)
+    sc = bs.score(dets, stream.positions, stream.payloads, FID_PAYLOAD)
+    sync = cfg.sync
+    M = sync.params.M
+    blocks = torch.zeros(bs.BLOCKS * sync.block_size, dtype=torch.complex64,
+                         device=dev)
+    head = noisy[:blocks.shape[0]]
+    blocks[:head.shape[0]] = head
+    _, exts = ofdm_sync.extended_windows(
+        sync, ofdm_sync.sync_init(sync, dev).tail[None],
+        blocks.reshape(1, bs.BLOCKS, sync.block_size))
+    b1 = kernel == "detect_metric_xcorr_onepass"
+    what = f"{'B1' if b1 else 'B2'} at the sweep's shapes {tuple(exts.shape)}"
+    if b1:
+        tmpl = ofdm_sync.sync_tables(sync, dev).xc_tmpl
+        args = (exts, tmpl, ofdm_sync._xc_span(len(tmpl)),
+                sync.block_size + 2 * M + 1)
+        err = b1_vs_plain(args, what)
+    else:
+        args = (exts, M // 4, 2 * M - M // 4, M, sync.block_size,
+                sync.threshold, sync.max_frames)
+        err = b2_vs_plain(args, what)
+    fn = getattr(kernels, kernel)
+    us = kernel_device_us(lambda: fn(*args), KERNELS[kernel]["kernel"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in bs.dispatches(cfg, noisy):
+            pass
+        torch.cuda.synchronize()
+    seen = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and KERNELS[kernel]["kernel"] in e.key)
+    kernels.reset_launch_counts()
+    return (bs.row(sc, snr), sc, sec, n, {k: (n if k == kernel else 0)
+                                          for k in kernels.launches}), \
+        us, err, (seen, n)
+
+
+def run_fidelity(dev, label):
+    """Phase 28: the port's BER/PER sweep (``apps/ber_sweep.py``) on the
+    card at the sweep's own configs, held to the JAX curves: (a) uncoded
+    OFDM (level 1, B1), flexframe and GMSK at 200 frames over each JAX
+    waterfall under rule (a); (b) OFDM at levels 0, 1 (B1) and 2 (B2) on
+    the same noisy streams at the two points that bracket 10 % PER: level
+    1 within a frame of level 0's detections and at most
+    ``FID_LEVEL_FLIPS`` flips of ``payload_valid``, B1 and B2 launched once
+    in every dispatch (the wrappers' counts) and held to their plain
+    versions at the sweep's shapes (``fid_profiled``); (c) v27 soft
+    for each family at one waterfall point, soft and hard on one stream,
+    both under rule (a) against their JAX curves, soft PER below hard.
+    Returns (the runs' launch counts, the sweep's B1 and B2 launches)."""
+    from liquid_usrp_tpu_torch.apps import ber_sweep as bs
+    t_phase = time.perf_counter()
+    runs, sweep = [], {"detect_metric_xcorr_onepass": 0,
+                       "detect_candidates_onepass": 0}
+
+    def count(launches, level_kernel=None):
+        runs.append(launches)
+        other = {k: v for k, v in launches.items()
+                 if k != level_kernel and v}
+        if other:
+            raise AssertionError(f"the sweep launched {other}")
+        if level_kernel is not None:
+            sweep[level_kernel] += launches[level_kernel]
+
+    b1, b2 = "detect_metric_xcorr_onepass", "detect_candidates_onepass"
+    noisy_ofdm = {}
+    for fam in ("ofdm", "flex", "gmsk"):
+        rows = jax_curve(fam)
+        cfg = bs.make_config(fam, FID_PAYLOAD)
+        t0 = time.perf_counter()
+        stream = bs.build_stream(cfg, FID_FRAMES, 0, dev)
+        t_tx = time.perf_counter() - t0
+        for snr in waterfall_points(rows):
+            noisy = bs.add_noise(stream, snr)
+            if fam == "ofdm":
+                noisy_ofdm[snr] = (stream, noisy)
+            row, _, sec, n_disp, launches = fid_point(bs, cfg, stream, noisy,
+                                                      snr, dev)
+            count(launches, b1 if fam == "ofdm" else None)
+            per_w = rule_a(f"{fam} uncoded", row, rows)
+            print(fid_line(f"fidelity {fam} uncoded", row,
+                           fid_jax_row(rows, snr), sec)
+                  + f", {n_disp} dispatches; rule (a) PER window "
+                  f"[{per_w[0]:.3f}, {per_w[1]:.3f}]", flush=True)
+        print(f"fidelity {fam}: {FID_FRAMES} frames built on {dev} in "
+              f"{t_tx:.2f} s", flush=True)
+
+    rows = jax_curve("ofdm")
+    for snr in FID_LEVEL_SNRS:
+        stream, noisy = noisy_ofdm[snr]        # points of (a)'s waterfall
+        got, dev_us, errs, traced = {}, {}, {}, {}
+        for level, kernel in ((0, None), (1, b1), (2, b2)):
+            cfg = bs.make_config("ofdm", FID_PAYLOAD, use_pallas=level)
+            if kernel is None:
+                got[level] = fid_point(bs, cfg, stream, noisy, snr, dev)
+            else:
+                got[level], dev_us[level], errs[level], traced[level] = \
+                    fid_profiled(bs, cfg, stream, noisy, snr, dev, kernel)
+            count(got[level][4], kernel)
+        (r0, s0, *_), (r1, s1, *_), (r2, s2, *_) = (got[0], got[1], got[2])
+        p0 = r0["packet_error_rate"]
+        flips1 = int((s1.frame_ok != s0.frame_ok).sum())
+        flips2 = int((s2.frame_ok != s0.frame_ok).sum())
+        print(f"fidelity ofdm levels at {snr} dB on one noisy stream: "
+              f"detected {r0['frames_detected']} / {r1['frames_detected']} /"
+              f" {r2['frames_detected']}, PER {p0:.3f} / "
+              f"{r1['packet_error_rate']:.3f} / {r2['packet_error_rate']:.3f}"
+              f" (levels 0 / 1 / 2; JAX level 0 "
+              f"{fid_jax_row(rows, snr)['packet_error_rate']:.3f}); "
+              f"payload_valid flips against level 0: {flips1} (level 1, "
+              f"limit {FID_LEVEL_FLIPS}), {flips2} (level 2); B1 and B2 once "
+              f"in each of {got[1][3]} / {got[2][3]} dispatches by the "
+              f"wrappers' counts; at the sweep's shapes against the plain "
+              f"versions {errs[1]:.3e} / {errs[2]:.3e}, {DEVICE_ITERS} of "
+              f"{DEVICE_ITERS} launches in the profiler "
+              f"({dev_us[1]:.2f} / {dev_us[2]:.2f} us each); the profiler "
+              f"over the path saw {traced[1][0]} / {traced[2][0]} kernel "
+              f"records in {traced[1][1]} / {traced[2][1]} dispatches; "
+              f"{got[0][2]:.2f} / {got[1][2]:.2f} / {got[2][2]:.2f} s",
+              flush=True)
+        if abs(r1["frames_detected"] - r0["frames_detected"]) > 1:
+            raise AssertionError(f"level 1 detected {r1['frames_detected']}"
+                                 f", level 0 {r0['frames_detected']}")
+        if flips1 > FID_LEVEL_FLIPS:
+            raise AssertionError(f"level 1's payload_valid differs from "
+                                 f"level 0's in {flips1} frames (limit "
+                                 f"{FID_LEVEL_FLIPS})")
+
+    print(f"fidelity v27 soft: {FID_SOFT_FRAMES} frames a point"
+          + ("" if FID_SOFT_FRAMES == FID_FRAMES else
+             f" (cut from {FID_FRAMES} to fit the phase's time)"), flush=True)
+    for fam, snr in FID_SOFT_SNR.items():
+        soft_rows = jax_curve(f"{fam}_v27_soft")
+        hard_rows = jax_curve(f"{fam}_v27_hard")
+        soft = bs.make_config(fam, FID_PAYLOAD, "v27", "none", soft=True)
+        hard = bs.make_config(fam, FID_PAYLOAD, "v27", "none")
+        stream = bs.build_stream(soft, FID_SOFT_FRAMES, 0, dev)
+        noisy = bs.add_noise(stream, snr)
+        out = {}
+        for what, cfg, rows in (("soft", soft, soft_rows),
+                                ("hard", hard, hard_rows)):
+            row, _, sec, n_disp, launches = fid_point(bs, cfg, stream, noisy,
+                                                      snr, dev)
+            count(launches, b1 if fam == "ofdm" else None)
+            per_w = rule_a(f"{fam} v27 {what}", row, rows)
+            out[what] = row
+            print(fid_line(f"fidelity {fam} v27 {what}", row,
+                           fid_jax_row(rows, snr), sec)
+                  + f", {n_disp} dispatches; rule (a) PER window "
+                  f"[{per_w[0]:.3f}, {per_w[1]:.3f}]", flush=True)
+        if not (out["soft"]["packet_error_rate"] <
+                out["hard"]["packet_error_rate"]):
+            raise AssertionError(f"{fam} v27 at {snr} dB: soft PER "
+                                 f"{out['soft']['packet_error_rate']} not "
+                                 f"below hard "
+                                 f"{out['hard']['packet_error_rate']}")
+    print(f"fidelity on {label}: every point within rule (a); the sweep "
+          f"launched B1 {sweep[b1]} and B2 {sweep[b2]} times, B3-B5 0; the "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs, sweep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3127,6 +3485,11 @@ def main() -> int:
           f"ms; soft demapper at the flexframe dispatch {demap[0]:.3f} ms, "
           f"peak {demap[1]:.1f} MB", flush=True)
     path_runs += [soft_ops, soft_runs, soft_ofdm, a13, duplex]
+    # phase 28 runs here, before the threads and worlds of phases 24-27
+    fid_runs, fid_sweep = run_fidelity(dev, label)
+    path_runs += fid_runs
+    for name, n in fid_sweep.items():
+        launches[name] += n
     with tempfile.TemporaryDirectory() as tmpdir:
         stream_launch, stream_ctx = run_streaming(blocks, flush, weights,
                                                   expected, dev, tmpdir,

@@ -36,16 +36,18 @@ from ..ops import modem as modem_mod
 from ..ops.corr import comb_rev_freq_np, find_candidates, next_pow2
 from ..ops.corr import topk_peaks  # noqa: F401  (JAX module surface)
 from ..utils.consts import on
+from ..utils.device import default_device
 from . import payload as payload_codec
 from .ofdm import NUM_S0, OfdmParams, _pilot_values, header_symbol_count
 from .payload import (EXPANSION as _EXPANSION, HEADER_BPS as _HEADER_BPS,
                       HEADER_MOD as _HEADER_MOD, HEADER_SYMS, PAYLOAD_FECS,
-                      PAYLOAD_FECS_FULL)
+                      PAYLOAD_FECS_FULL, PAYLOAD_MODS)
 
 __all__ = ["OfdmSync", "OfdmSyncState", "FrameResults", "SyncTables",
            "make_sync", "sync_init", "sync_tables", "sync_block",
            "make_sync_step", "sync_blocks_batched", "sync_channels_batched",
-           "extended_windows", "debug_capture", "PAYLOAD_FECS"]
+           "extended_windows", "debug_capture", "PAYLOAD_FECS",
+           "PAYLOAD_MODS"]
 
 # payload symbols feeding the decision-directed channel re-estimation
 _DD_SYMS = 64
@@ -121,10 +123,11 @@ def make_sync(params: OfdmParams, block_size: int = 16384,
                     iter_header=bool(iter_header))
 
 
-def sync_init(sync: OfdmSync, device="cpu") -> OfdmSyncState:
+def sync_init(sync: OfdmSync, device=None) -> OfdmSyncState:
+    dev = default_device(device)
     return OfdmSyncState(
-        tail=torch.zeros(sync.overlap, dtype=torch.complex64, device=device),
-        base=torch.tensor(-sync.overlap, dtype=torch.int32, device=device))
+        tail=torch.zeros(sync.overlap, dtype=torch.complex64, device=dev),
+        base=torch.tensor(-sync.overlap, dtype=torch.int32, device=dev))
 
 
 def _xc_span(n_tmpl: int) -> int:
@@ -684,7 +687,6 @@ def debug_capture(sync: OfdmSync, stream, device=None) -> dict:
     ``psyms_eq`` (equalized payload points of this frame).  Never on the
     hot path."""
     from ..ops.iqfmt import iq_from_any
-    from ..utils.device import default_device
     if not isinstance(stream, torch.Tensor):
         stream = torch.as_tensor(np.asarray(stream),
                                  device=default_device(device))

@@ -21,7 +21,7 @@ import torch
 from ..utils.bits import gf2_matmul, unpack_bits
 from ..utils.consts import on
 
-__all__ = ["CRC_NONE", "CRC_16", "CRC_32", "MAX_LEN", "crc_width_bytes",
+__all__ = ["CrcScheme", "CRC_NONE", "CRC_16", "CRC_32", "MAX_LEN", "crc_width_bytes",
            "crc_compute", "crc_compute_masked", "crc_append", "crc_check",
            "np_crc"]
 
@@ -138,7 +138,10 @@ def _basis_tail(scheme: int, n: int) -> np.ndarray:
     return np.ascontiguousarray(basis_desc[basis_desc.shape[0] - n * 8:])
 
 
-def crc_width_bytes(scheme: int) -> int:
+CrcScheme = int  # alias for readability in signatures
+
+
+def crc_width_bytes(scheme: CrcScheme) -> int:
     return {CRC_NONE: 0, CRC_16: 2, CRC_32: 4}[scheme]
 
 

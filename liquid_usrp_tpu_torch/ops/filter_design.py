@@ -18,7 +18,7 @@ from functools import lru_cache as _lru_cache
 
 import numpy as np
 
-__all__ = ["kaiser_beta", "firdes_kaiser", "firdes_prototype", "rrcos",
+__all__ = ["kaiser_beta", "kaiser_window", "firdes_kaiser", "firdes_prototype", "rrcos",
            "halfband_kaiser", "pfb_channelizer_prototype", "gaussian_pulse",
            "PULSE_TYPES"]
 
@@ -31,6 +31,10 @@ def kaiser_beta(As: float) -> float:
     if As > 21.0:
         return 0.5842 * (As - 21.0) ** 0.4 + 0.07886 * (As - 21.0)
     return 0.0
+
+
+def kaiser_window(n: int, beta: float) -> np.ndarray:
+    return np.kaiser(n, beta)
 
 
 def firdes_kaiser(n: int, fc: float, As: float, mu: float = 0.0) -> np.ndarray:

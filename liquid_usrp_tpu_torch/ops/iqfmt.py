@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import default_device
+
 __all__ = ["iq_to_planes", "iq_to_planes_sc8", "czeros", "iq_from_any",
            "SC8_FULL_SCALE", "SC16_FULL_SCALE"]
 
@@ -32,11 +34,13 @@ def iq_to_planes_sc8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(planes), -127.0, 127.0).to(torch.int8)
 
 
-def czeros(shape, device="cpu") -> torch.Tensor:
-    """Complex64 zeros of ``shape``."""
+def czeros(shape, device=None) -> torch.Tensor:
+    """Complex64 zeros of ``shape`` on ``device`` (``None``: the card,
+    ``utils/device.py``)."""
     if isinstance(shape, int):
         shape = (shape,)
-    return torch.zeros(tuple(shape), dtype=torch.complex64, device=device)
+    return torch.zeros(tuple(shape), dtype=torch.complex64,
+                       device=default_device(device))
 
 
 def iq_from_any(x: torch.Tensor) -> torch.Tensor:

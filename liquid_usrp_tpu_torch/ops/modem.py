@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.consts import on
+from ..utils.device import default_device
 
 __all__ = [
     "mod_names", "mod_from_name", "mod_name", "bits_per_symbol",
@@ -372,9 +373,10 @@ def _table_c64(scheme: int) -> np.ndarray:
     return _table_np(scheme).astype(np.complex64)
 
 
-def constellation(scheme: int, device="cpu") -> torch.Tensor:
-    """Unit-energy constellation table ``[2^bps]`` complex64."""
-    return on(_table_c64(scheme), device)
+def constellation(scheme: int, device=None) -> torch.Tensor:
+    """Unit-energy constellation table ``[2^bps]`` complex64 on ``device``
+    (``None``: the card, ``utils/device.py``)."""
+    return on(_table_c64(scheme), default_device(device))
 
 
 def modulate(scheme: int, symbols: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import default_device
+
 __all__ = ["NcoState", "nco_init", "nco_init_at", "nco_phase_ramp",
            "nco_mix_block", "freq_to_u32"]
 
@@ -36,20 +38,22 @@ class NcoState(NamedTuple):
     freq: torch.Tensor   # scalar int64 holding a uint32, 2^-32 turns/sample
 
 
-def nco_init(freq_rad: float, phase: float = 0.0, device="cpu") -> NcoState:
+def nco_init(freq_rad: float, phase: float = 0.0, device=None) -> NcoState:
     ph = int(round(phase / _TWO_PI * _TURN)) % (1 << 32)
+    device = default_device(device)
     return NcoState(
         phase=torch.tensor(ph, dtype=torch.int64, device=device),
         freq=torch.tensor(freq_to_u32(freq_rad), dtype=torch.int64,
                           device=device))
 
 
-def nco_init_at(freq_rad: float, index: int, device="cpu") -> NcoState:
+def nco_init_at(freq_rad: float, index: int, device=None) -> NcoState:
     """NCO state positioned at absolute sample ``index``: the phase is
     ``freq * (index mod 2^32)`` reduced mod 2^32, exact at any stream
     offset.  The sharded builders compute each rank's global index on the
     host, so the arithmetic is on Python ints."""
     f = freq_to_u32(freq_rad)
+    device = default_device(device)
     return NcoState(
         phase=torch.tensor(f * (int(index) & _MASK) & _MASK,
                            dtype=torch.int64, device=device),

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.consts import on
+from ..utils.device import default_device
 from .filter_design import pfb_channelizer_prototype
 
 __all__ = ["Pfbch", "PfbchState", "pfbch_create", "pfbch_state",
@@ -46,10 +47,10 @@ def pfbch_create(num_channels: int, m: int = 7, As: float = 60.0) -> Pfbch:
     return Pfbch(M=M, P=P, h_pol=h.reshape(P, M).astype(np.float32))
 
 
-def pfbch_state(ch: Pfbch, device="cpu") -> PfbchState:
+def pfbch_state(ch: Pfbch, device=None) -> PfbchState:
     return PfbchState(frames=torch.zeros((ch.P - 1, ch.M),
                                          dtype=torch.complex64,
-                                         device=device))
+                                         device=default_device(device)))
 
 
 def _branch_filter(ch: Pfbch, h: torch.Tensor, state_frames: torch.Tensor,

@@ -8,7 +8,8 @@ The port keeps the JAX state and result NamedTuples' class and field names
 one conversion moves a mid-stream state across: :func:`from_jax_tree` takes a tree whose leaves
 are NumPy arrays (``jax.device_get`` of a JAX state, or what
 ``liquid_usrp_tpu/utils/checkpoint.py`` saves) and builds the port's
-NamedTuples with tensors on ``device``; :func:`to_numpy_tree` is the
+NamedTuples with tensors on ``device`` (the card unless asked for
+another); :func:`to_numpy_tree` is the
 inverse.  Plain tuples and lists (``MsresampState.hb_states``) are walked
 element by element.  NCO phases, uint32 in JAX, are int64 tensors in the
 port.
@@ -28,6 +29,7 @@ from ..ops.fir import FirState
 from ..ops.nco import NcoState
 from ..ops.pfb import PfbchState
 from ..ops.resamp import MsresampState, ResampState
+from .device import default_device
 
 __all__ = ["from_jax_tree", "to_numpy_tree"]
 
@@ -41,8 +43,10 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def from_jax_tree(tree, device="cpu"):
-    """JAX state/result tree with NumPy leaves -> the port's tree."""
+def from_jax_tree(tree, device=None):
+    """JAX state/result tree with NumPy leaves -> the port's tree, on
+    ``device`` (``None``: the card, ``utils/device.py``)."""
+    device = default_device(device)
     if _is_namedtuple(tree):
         cls = _CLASSES.get(type(tree).__name__)
         if cls is None or cls._fields != tree._fields:

@@ -268,7 +268,7 @@ def test_flex_state_carries_over_and_checkpoints(jax_ref, tmp_path):
     port's checkpoint), continues to JAX's rows; results convert too."""
     x, _, _, mid, later = jax_ref[CFOS[0]]
     sync = _tsync()
-    st = from_jax_tree(mid)
+    st = from_jax_tree(mid, "cpu")
     assert type(st) is tfs.FlexSyncState and st.base.dtype == torch.int32
     back = to_numpy_tree(st)
     np.testing.assert_array_equal(back.tail, mid.tail)
@@ -283,7 +283,7 @@ def test_flex_state_carries_over_and_checkpoints(jax_ref, tmp_path):
             blk[:len(seg)] = seg
             s, r = tfs.flex_sync_block(sync, s, torch.as_tensor(blk))
             _rows_equal(_host(r), want)
-            res = from_jax_tree(want)
+            res = from_jax_tree(want, "cpu")
             assert type(res) is tfs.FlexResults
     assert any(bool(w.payload_valid.any()) for w in later)
 

@@ -296,7 +296,7 @@ def test_sync_block_levels(streams, jax_ref):
     stream, sent = streams
     level, ref, jfinal = jax_ref
     _, tsy = _syncs(level)
-    ts = tsync.sync_init(tsy)
+    ts = tsync.sync_init(tsy, "cpu")
     found = {}
     for b in range(N_BLOCKS):
         ts, tr = tsync.sync_block(tsy, ts, _t(stream[0, b * BS:(b + 1) * BS]))
@@ -312,7 +312,7 @@ def test_sync_channels_batched_levels(streams, jax_ref):
     stream, sent = streams
     level, ref, jfinal = jax_ref
     _, tsy = _syncs(level)
-    t1 = tsync.sync_init(tsy)
+    t1 = tsync.sync_init(tsy, "cpu")
     ts = tsync.OfdmSyncState(tail=t1.tail.expand(2, -1).clone(),
                              base=t1.base.expand(2).clone())
     found = {}

@@ -245,7 +245,7 @@ def test_sync_matches_jax(jax_ref, conv):
     _rows_equal(res, jres)
     np.testing.assert_array_equal(st.tail.numpy(), np.asarray(jst.tail))
     assert int(st.base) == int(jst.base) and st.base.dtype == torch.int32
-    moved = from_jax_tree(jst)
+    moved = from_jax_tree(jst, "cpu")
     assert type(moved) is tg.GmskSyncState
     assert torch.equal(moved.tail, st.tail)
     ok = sorted((int(res.t_start[b, i]), res.header[b, i],

@@ -126,7 +126,7 @@ def test_mcrx_batched_matches_jax_and_resumes(mixture):
     for i, x in enumerate(chunks):
         if i == 1:
             # resume the port from the converted mid-stream JAX state
-            ts = from_jax_tree(jax.device_get(js))
+            ts = from_jax_tree(jax.device_get(js), "cpu")
         js, jr = jstep(js, jnp.asarray(x))
         ts, tr = tstep(ts, torch.as_tensor(x))
         assert tr.detected.shape == (N, NB, 8)
@@ -146,7 +146,7 @@ def test_state_conversion_roundtrip():
     jsy = jsync.make_sync(params, block_size=BS, max_payload=64)
     jinit, _ = jmc.make_mcrx_step(N, jsy)
     js = jax.device_get(jinit())
-    back = to_numpy_tree(from_jax_tree(js))
+    back = to_numpy_tree(from_jax_tree(js, "cpu"))
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(js)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)

@@ -156,7 +156,7 @@ def test_nco_phase_exact_output_close():
     rng = np.random.default_rng(4)
     f = -0.5 * 3 / 4 * np.pi
     assert tnco.freq_to_u32(f) == int(jnco.freq_to_u32(f))
-    ts, js = tnco.nco_init(f, 0.3), jnco.nco_init(f, 0.3)
+    ts, js = tnco.nco_init(f, 0.3, device="cpu"), jnco.nco_init(f, 0.3)
     for n in (1000, 4096, 777):
         x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(
             np.complex64)
@@ -178,7 +178,7 @@ def test_pfb_block_chopping(direction):
     m = 7 if direction == "analyze" else 13
     tch, jch = tpfb.pfbch_create(M, m), jpfb.pfbch_create(M, m)
     rng = np.random.default_rng(5)
-    ts, js = tpfb.pfbch_state(tch), jpfb.pfbch_state(jch)
+    ts, js = tpfb.pfbch_state(tch, "cpu"), jpfb.pfbch_state(jch)
     for n_frames in (40, 8, 23):
         if direction == "analyze":
             x = (rng.normal(size=n_frames * M) +

@@ -160,13 +160,13 @@ def test_factor_devices_matches_jax(n):
 @pytest.mark.parametrize("freq", [-0.5 * 3 / 4 * np.pi, 0.3])
 def test_nco_init_at_matches_jax_exactly(index, freq):
     want = jnco.nco_init_at(freq, index)
-    got = tnco.nco_init_at(freq, index)
+    got = tnco.nco_init_at(freq, index, "cpu")
     assert int(got.phase) == int(want.phase)
     assert int(got.freq) == int(want.freq)
     # and the ramp from there, as the sharded builders mix with it
     x = np.ones(64, np.complex64)
     _, jy = jnco.nco_mix_block(want, jnp.asarray(x))
-    _, ty = tnco.nco_mix_block(tnco.nco_init_at(freq, index),
+    _, ty = tnco.nco_mix_block(tnco.nco_init_at(freq, index, "cpu"),
                                torch.as_tensor(x))
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-6)
 

@@ -265,7 +265,7 @@ def test_msresamp_state_carries_over_from_jax_and_checkpoints(tmp_path):
         sj, *_ = jrs.msresamp_block(mj, sj, jnp.asarray(x[:4096]))
         host = jax.device_get(sj)
         _, yj, _, cj = jrs.msresamp_block(mj, sj, jnp.asarray(x[4096:]))
-        st = from_jax_tree(host)
+        st = from_jax_tree(host, "cpu")
         assert type(st) is trs.MsresampState
         assert isinstance(st.hb_states, tuple) and all(
             type(h) is tfir.FirState for h in st.hb_states)

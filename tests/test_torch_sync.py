@@ -136,7 +136,7 @@ def test_sync_step_and_batched_match_jax(stream, jax_batched):
     x, sent = stream
     config, ref, jfinal = jax_batched
     _, tsy = _syncs(*config)
-    ts = tsync.sync_init(tsy)
+    ts = tsync.sync_init(tsy, "cpu")
     found = {}
     for call in range(N_BLOCKS // NB):
         chunk = x[call * NB * BS:(call + 1) * NB * BS].reshape(NB, BS)
@@ -149,7 +149,7 @@ def test_sync_step_and_batched_match_jax(stream, jax_batched):
     assert len(found) == len(sent)
 
     step = tsync.make_sync_step(tsy)
-    ts = tsync.sync_init(tsy)
+    ts = tsync.sync_init(tsy, "cpu")
     for b in range(N_BLOCKS):
         ts, tr = step(ts, _t(x[b * BS:(b + 1) * BS]))
         jr = type(ref[0])(*(v[b % NB] for v in ref[b // NB]))
@@ -164,10 +164,10 @@ def test_batched_blocks_equal_sequential(stream):
     included, and the same carried state; planes ingest decodes alike."""
     x, sent = stream
     _, tsy = _syncs(False, 1)
-    st, res = tsync.sync_blocks_batched(tsy, tsync.sync_init(tsy),
+    st, res = tsync.sync_blocks_batched(tsy, tsync.sync_init(tsy, "cpu"),
                                         _t(x.reshape(N_BLOCKS, BS)))
     step = tsync.make_sync_step(tsy)
-    seq = tsync.sync_init(tsy)
+    seq = tsync.sync_init(tsy, "cpu")
     for b in range(N_BLOCKS):
         seq, r = step(seq, _t(x[b * BS:(b + 1) * BS]))
         rb = tsync.FrameResults(*(v[b] for v in res))
@@ -183,7 +183,7 @@ def test_batched_blocks_equal_sequential(stream):
     assert int(st.base) == int(seq.base)
     assert int(res.payload_valid.sum()) == len(sent)
     planes = _t(np.stack([x.real, x.imag]).reshape(2, N_BLOCKS, BS))
-    _, rp = tsync.sync_blocks_batched(tsy, tsync.sync_init(tsy), planes)
+    _, rp = tsync.sync_blocks_batched(tsy, tsync.sync_init(tsy, "cpu"), planes)
     np.testing.assert_array_equal(rp.payload.numpy(), res.payload.numpy())
 
 

@@ -119,7 +119,7 @@ def test_run_rx_matches_jax_and_resumes(jax_run):
         np.testing.assert_array_equal(f["header"], h)
         np.testing.assert_array_equal(f["payload"], p)
     resumed = OfdmTxRx(**KW, device="cpu")
-    resumed._rx_state = from_jax_tree(state)
+    resumed._rx_state = from_jax_tree(state, "cpu")
     resumed._pending = pending
     resumed.start_rx()
     _rows_equal(resumed.run_rx(air[CUT:], flush=True), rows_b)
