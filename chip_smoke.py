@@ -234,7 +234,24 @@ parallel layer (``parallel/``: worlds of ranks that share the card):
    soft decisions at 2 dB (OFDM), 0 dB (flexframe) and -3 dB (GMSK), soft
    and hard on one stream, each under rule (a) against its JAX curve, the
    soft PER below the hard.  Its B1 and B2 launches add to the kernels
-   line; B3-B5 launch 0 times.
+   line; B3-B5 launch 0 times;
+29. (run after 28) every OFDM size the JAX package takes: at M = 512
+   (B2, level 2), 1,028 (B1, level 1) and 1,152 (B3, the legacy detector),
+   where each kernel leaves its M=48 tiling, B1, B2 and B3 against their
+   plain versions (the limits of 3) on the 8 extended windows of
+   ``ofdmflexframe_rx``'s first dispatch (``ofdmflexframe_tx -M m -C m/8
+   -N 4 -P 200`` in 0.01-rms noise), and that M's kernel timed (device
+   time over all the CUDA kernels its wrapper launches, beside its
+   bound); a launch-only sweep over every M that is a multiple of 4 from
+   8 to 4,096, and 6,144 and 8,192 (B1 and B3 at each, B2 from 32:
+   finite outputs of their shapes); ``sync_block`` on the card at each of
+   the three sizes and its detect config decoding 4/4 payload-exact, with
+   the rows of the port's CPU path on the same samples;
+   ``tests/test_robustness.py``'s adversarial blocks and NaN/Inf block
+   through OFDM levels 1 and 2 (no false frame, finite state, the frame
+   after the NaN block payload-exact); ``ofdmflexframe_rx -M 1028`` 4/4
+   and ``multichannel_rx -M 1028`` 6/6 valid on their TX's files.  Its
+   launches count toward B4/B5's zero check, not the kernels line.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -297,6 +314,9 @@ KERNELS = {
 # and float32 FLOP/s outside the tensor cores, at a 700 W limit
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 DEVICE_ITERS = 100             # launches per kernel-only device time
+DEVICE_TRACES = 5              # profiler windows tried per device time
+SPIN_CYCLES = 1_000_000        # the spin kernel opening each window
+PROFILER_EDGE_S = 0.05         # host idle at each edge of a profiler window
 # the single-channel path at the ofdmflexframe_tx/rx defaults
 SC_FRAMES, SC_PAYLOAD, SC_SEED = 40, 1200, 42
 SC_BLOCK, SC_BATCH, SC_MAX_PAYLOAD = 16384, 8, 2048
@@ -361,6 +381,22 @@ FID_SIGMAS = 3.0               # ... PER_J(s - 0.5), each widened so
 FID_LEVEL_SNRS = (7.0, 8.0)    # OFDM: bracket 10 % PER, levels 0, 1, 2
 FID_LEVEL_FLIPS = 2            # level 1's payload_valid flips vs level 0
 FID_SOFT_SNR = {"ofdm": 2.0, "flex": 0.0, "gmsk": -3.0}
+# every OFDM size the JAX package takes (phase 29): per M, the detect
+# config (xcorr_detect, use_pallas) whose kernel leaves its M=48 tiling
+# there, and the CUDA kernels a call of its wrapper launches at that M
+LM_CONFIGS = {512: (True, 2, "detect_candidates_onepass"),
+              1028: (True, 1, "detect_metric_xcorr_onepass"),
+              1152: (False, 1, "detect_metric_onepass")}
+LM_KERNELS = {"detect_metric_xcorr_onepass": ("xcorr_metric_kernel",),
+              "detect_candidates_onepass": ("ws_lag_sums_kernel",
+                                            "cand_nms_kernel",
+                                            "cand_seg_kernel"),
+              "detect_metric_onepass": ("ws_lag_sums_kernel",
+                                        "autocorr_gate_kernel")}
+LM_FRAMES, LM_PAYLOAD, LM_MAX_PAYLOAD, LM_BLOCK = 4, 200, 256, 8192
+LM_SWEEP = tuple(range(8, 4097, 4)) + (6144, 8192)
+LM_SWEEP_BLOCK = 1024          # the sweep's rows: 4 M + this many samples
+ROB_BLOCK = 8192               # tests/test_robustness.py's blocks
 
 
 def card() -> str:
@@ -387,32 +423,50 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_us(fn, kernel: str, iters: int = DEVICE_ITERS) -> float:
-    """Mean device microseconds of the CUDA kernel named ``kernel`` over
-    ``iters`` back-to-back calls of ``fn`` (``torch.profiler``: the
-    kernel's own time on the card, without the wrapper's other work or
-    the host's launch gaps).  The profiler can lose a few activity records
-    of a window; a window that does not show every launch is traced
-    again, at most three times."""
+def kernel_device_us(fn, kernel, iters: int = DEVICE_ITERS) -> float:
+    """Mean device microseconds a call of ``fn`` spends in the CUDA kernel
+    named ``kernel`` (or, for a tuple of names, in those kernels, each
+    launched once a call) over ``iters`` back-to-back calls
+    (``torch.profiler``: the kernels' own time on the card, without the
+    wrapper's other work or the host's launch gaps).  Two calls warm every
+    kernel up first, and each window opens with a spin kernel, so that
+    the timed launches queue behind it.  In about one window of a hundred
+    the profiler loses every record of the window's first millisecond or
+    so (the spin kernel's and those of the first calls;
+    ``scripts/profiler_edges.py`` counts it), so the host idles
+    ``PROFILER_EDGE_S`` at each edge of the window before and after any
+    launch.  A window that does not show every launch of every kernel is
+    traced again with twice the margin, at most ``DEVICE_TRACES``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    fn()
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    edge = PROFILER_EDGE_S
+    for _ in range(DEVICE_TRACES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(edge)
+            torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(edge)
         ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
-        n = sum(e.count for e in ev)
-        if n == iters:
+              if e.device_type == DeviceType.CUDA]
+        n = {k: sum(e.count for e in ev if k in e.key) for k in names}
+        if all(c == iters for c in n.values()):
             return sum(getattr(e, "self_device_time_total", None) or
-                       e.self_cuda_time_total for e in ev) / n
-        print(f"profiler saw {n} launches of {kernel} of {iters}: traced "
-              f"again", flush=True)
-    raise AssertionError(f"profiler saw {n} launches of {kernel}, "
-                         f"expected {iters}")
+                       e.self_cuda_time_total
+                       for k in names for e in ev if k in e.key) / iters
+        spin = sum(e.count for e in ev if "spin" in e.key)
+        print(f"profiler saw {n} launches of {iters} each and {spin} of 1 "
+              f"spin kernel with {edge:.2f} s margins: traced again",
+              flush=True)
+        edge *= 2
+    raise AssertionError(f"profiler saw {n} launches, expected {iters} "
+                         f"of each")
 
 
 def bound(nbytes: float, flops: float):
@@ -422,13 +476,13 @@ def bound(nbytes: float, flops: float):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def template_period(tmpl, span: int) -> int:
-    """The smallest divisor p of ``span`` with ``tmpl[i + p] == tmpl[i]``
-    everywhere (exactly), or 0 when the segments differ.  The S0 template
-    repeats with period M/4 (S0 sits on every 4th subcarrier)."""
+def template_period(tmpl) -> int:
+    """The smallest p < len(tmpl) with ``tmpl[i + p] == tmpl[i]``
+    everywhere (exactly), or 0.  The S0 template repeats with period M/4
+    (S0 sits on every 4th subcarrier)."""
     t = np.asarray(tmpl)
-    for p in range(1, span + 1):
-        if span % p == 0 and np.array_equal(t[p:], t[:-p]):
+    for p in range(1, len(t)):
+        if np.array_equal(t[p:], t[:-p]):
             return p
     return 0
 
@@ -436,20 +490,29 @@ def template_period(tmpl, span: int) -> int:
 def work(name, rows, length, **shape):
     """(bytes, float32 operations) of one call at these shapes: each input
     read once and each output written once; operations as the function
-    needs them on this run's data.  B1: with a template of period p (a
-    divisor of the span), one p-tap correlation z per sample (8 per complex
-    tap) serves every segment, which adds span/p values of z; otherwise 8
-    per tap of every segment; then per segment |u|^2, the energy scale, the
-    divide, the floor gate and the sum, and per sample |x|^2, a running
-    span-window power sum and the mean.  B2/B3: the lag product, power and
-    three window sums as running sums, the metric and, for B2, the NMS max;
-    B4/B5: four window differences and the metric."""
+    needs them on this run's data.  B1: with a template of period p, the
+    product of tap k and sample i depends on (i, (i - k) mod p) only, so
+    each of the p residue classes of outputs takes one product sequence
+    (6 a product) and its running span-window sums (4 a sample), over the
+    samples its outputs reach; where p divides the span, one p-tap
+    correlation z per sample (8 per complex tap) serves every segment,
+    which adds span/p values of z; the least of these and 8 per tap of
+    every segment (the direct form); then per segment |u|^2, the energy
+    scale, the divide, the floor gate and the sum, and per sample |x|^2, a
+    running span-window power sum and the mean.  B2/B3: the lag product,
+    power and three window sums as running sums, the metric and, for B2,
+    the NMS max; B4/B5: four window differences and the metric."""
     x = rows * length * 8
     if name == "detect_metric_xcorr_onepass":
         n, tmpl, span = shape["n_metric"], shape["tmpl"], shape["span"]
-        n_seg, p = len(tmpl) // span, template_period(tmpl, span)
-        corr = 8 * p + n_seg * 2 * (span // p - 1) if p else 8 * len(tmpl)
-        return x + rows * n * 4, rows * n * (corr + 7 * n_seg + 6)
+        n_tap, p = len(tmpl), template_period(tmpl)
+        n_seg = n_tap // span
+        corr = 8 * n_tap * n
+        if p:
+            corr = min(corr, 10 * (p * n + min(p, n) * (n_tap - p)))
+        if p and span % p == 0:
+            corr = min(corr, n * (8 * p + n_seg * 2 * (span // p - 1)))
+        return x + rows * n * 4, rows * (corr + n * (7 * n_seg + 6))
     n_out = length - shape["span"] - shape["lag"] + 1
     if name == "detect_candidates_onepass":
         n_seg = -(-n_out // CAND_SEG)
@@ -659,14 +722,17 @@ def check_kernels(sync, rx, blocks):
             exts.shape)}
 
 
-def timed(name, fn, plain, args, err, nbytes_flops, shape, label=None):
+def timed(name, fn, plain, args, err, nbytes_flops, shape, label=None,
+          kernel=None):
     """The wrapper ``fn(*args)``'s and the plain version's times (CUDA
     events), the kernel's device time alone (profiler) and its bound: one
     entry of the kernels line.  ``label`` names the printed line (default
-    ``name``)."""
+    ``name``); ``kernel``: the CUDA kernel name(s) a call launches
+    (default the wrapper's one-pass kernel)."""
     ms = cuda_ms(lambda: fn(*args), 50)
     plain_ms = cuda_ms(lambda: plain(*args), 10)
-    dev_us = kernel_device_us(lambda: fn(*args), KERNELS[name]["kernel"])
+    dev_us = kernel_device_us(lambda: fn(*args),
+                              kernel or KERNELS[name]["kernel"])
     bound_ms, bound_by = bound(*nbytes_flops)
     print(f"{label or name}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; "
           f"kernel "
@@ -771,15 +837,15 @@ def check_class_entry(dev):
           f"payload-exact", flush=True)
 
 
-def check_metric_kernel(name, plain, limit, exts, m_sub, label=None):
+def metric_vs_plain(name, plain, limit, exts, m_sub, label=None):
     """Kernel ``name`` (B3, B4 or B5) vs its ``plain`` version on the
     extended windows ``exts`` of M = ``m_sub``: metric max abs difference
-    and ``c`` relative to max ``|c|`` within ``limit``; then its times."""
+    and ``c`` relative to max ``|c|`` within ``limit``.  Returns the
+    metric's difference."""
     from liquid_usrp_tpu_torch.ops import kernels
     lag = m_sub // 4
     span = 2 * m_sub - lag
-    fn = getattr(kernels, name)
-    m, c = fn(exts, lag, span)
+    m, c = getattr(kernels, name)(exts, lag, span)
     torch.cuda.synchronize()
     mr, cr = plain(exts, lag, span)
     torch.cuda.synchronize()
@@ -791,9 +857,20 @@ def check_metric_kernel(name, plain, limit, exts, m_sub, label=None):
     if not (err <= limit and c_rel <= limit and m.shape == mr.shape):
         raise AssertionError(f"{label or name} disagrees with its plain "
                              f"version")
-    return timed(name, fn, plain, (exts, lag, span), err,
+    return err
+
+
+def check_metric_kernel(name, plain, limit, exts, m_sub, label=None,
+                        kernel=None):
+    """:func:`metric_vs_plain`, then the kernel's times (``kernel``: the
+    CUDA kernels a call launches, as :func:`timed` takes them)."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    err = metric_vs_plain(name, plain, limit, exts, m_sub, label)
+    lag = m_sub // 4
+    span = 2 * m_sub - lag
+    return timed(name, getattr(kernels, name), plain, (exts, lag, span), err,
                  work(name, *exts.shape, span=span, lag=lag), exts.shape,
-                 label)
+                 label, kernel)
 
 
 def check_autocorr_kernels(exts):
@@ -824,24 +901,25 @@ def sc_windows(params, stream, dev):
     return exts
 
 
-def sc_transmit(path):
+def sc_transmit(path, m=M, cp=CP, frames=SC_FRAMES, payload=SC_PAYLOAD):
     """``ofdmflexframe_tx.main`` at its defaults (40 frames of 1200 bytes,
-    seed 42) into ``path``: (stream, {packet id: payload}) with the
-    payloads regenerated from the seed as the app draws them."""
+    seed 42; or ``frames`` of ``payload`` bytes at M = ``m``, cyclic prefix
+    ``cp``) into ``path``: (stream, {packet id: payload}) with the payloads
+    regenerated from the seed as the app draws them."""
     from liquid_usrp_tpu_torch.apps import ofdmflexframe_tx
     from liquid_usrp_tpu_torch.io.streams import read_iq
     with contextlib.redirect_stdout(io.StringIO()):
         rc = ofdmflexframe_tx.main([
-            "-o", path, "-N", str(SC_FRAMES), "-P", str(SC_PAYLOAD),
-            "-s", str(SC_SEED), "-g", "-12", "-M", str(M), "-C", str(CP),
+            "-o", path, "-N", str(frames), "-P", str(payload),
+            "-s", str(SC_SEED), "-g", "-12", "-M", str(m), "-C", str(cp),
             "-T", str(TAPER), "-m", "qpsk", "-c", "none", "-k", "g2412"])
     if rc != 0:
         raise AssertionError(f"ofdmflexframe_tx exited {rc}")
     rng = np.random.default_rng(SC_SEED)
     sent = {}
-    for pid in range(SC_FRAMES):
+    for pid in range(frames):
         rng.integers(0, 256, 6, dtype=np.uint8)      # header bytes 2..7
-        sent[pid] = rng.integers(0, 256, SC_PAYLOAD, dtype=np.uint8)
+        sent[pid] = rng.integers(0, 256, payload, dtype=np.uint8)
     return read_iq(path), sent
 
 
@@ -3162,8 +3240,11 @@ def fid_profiled(bs, cfg, stream, noisy, snr, dev, kernel):
     CUDA kernel (``kernel_device_us``).  Last, the point's dispatches run
     once more under the profiler, and the kernel records it saw are
     reported beside the dispatches (the wrappers' counts are the check: a
-    profiler window over a whole point lost a dispatch's record in most
-    runs made after phases 24-27).  Returns the point's (row, score,
+    profiler window over a whole point, opened at the first dispatch, lost
+    a dispatch's record in most runs made after phases 24-27: the
+    profiler can lose the records of a window's first millisecond, so the
+    window idles ``PROFILER_EDGE_S`` at each edge, as ``kernel_device_us``
+    does).  Returns the point's (row, score,
     seconds, dispatches, launches), the kernel's device microseconds at
     these shapes, its error against the plain version and the profiler's
     (records, dispatches) over the path."""
@@ -3214,9 +3295,11 @@ def fid_profiled(bs, cfg, stream, noisy, snr, dev, kernel):
     us = kernel_device_us(lambda: fn(*args), KERNELS[kernel]["kernel"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_EDGE_S)
         for _ in bs.dispatches(cfg, noisy):
             pass
         torch.cuda.synchronize()
+        time.sleep(PROFILER_EDGE_S)
     seen = sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and KERNELS[kernel]["kernel"] in e.key)
@@ -3349,6 +3432,289 @@ def run_fidelity(dev, label):
           f"launched B1 {sweep[b1]} and B2 {sweep[b2]} times, B3-B5 0; the "
           f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return runs, sweep
+
+
+# ---------------------------------------------------------------------------
+# phase 29: every OFDM size the JAX package takes
+# ---------------------------------------------------------------------------
+
+def lm_kernels(m, exts, params):
+    """B1, B2 and B3 against their plain versions on the extended windows
+    ``exts`` of M = ``m`` (the limits of phase 3); then the times of the
+    kernel of ``LM_CONFIGS[m]``, whose wrapper launches ``LM_KERNELS``."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.ops import kernels
+    tmpl = np.tile(params.s0_time, 2)
+    span = ofdm_sync._xc_span(len(tmpl))
+    lag, L = m // 4, 2 * m - m // 4
+    b1_args = (exts, tmpl, span, SC_BLOCK + 2 * m + 1)
+    b2_args = (exts, lag, L, m, SC_BLOCK, 0.5, 8)
+    shape = tuple(exts.shape)
+    errs = {"detect_metric_xcorr_onepass":
+            b1_vs_plain(b1_args, f"B1 at M={m} {shape}"),
+            "detect_candidates_onepass":
+            b2_vs_plain(b2_args, f"B2 at M={m} {shape}"),
+            "detect_metric_onepass":
+            metric_vs_plain("detect_metric_onepass", kernels.autocorr_metric,
+                            1e-4, exts, m, f"B3 at M={m} {shape}")}
+    name = LM_CONFIGS[m][2]
+    if name == "detect_metric_xcorr_onepass":
+        plain, args = kernels.detect_metric_xcorr_plain, b1_args
+        nf = work(name, *shape, n_metric=b1_args[3], tmpl=tmpl, span=span)
+    elif name == "detect_candidates_onepass":
+        plain, args = kernels.detect_candidates_plain, b2_args
+        nf = work(name, *shape, span=L, lag=lag)
+    else:
+        plain, args = kernels.autocorr_metric, (exts, lag, L)
+        nf = work(name, *shape, span=L, lag=lag)
+    return timed(name, getattr(kernels, name), plain, args, errs[name], nf,
+                 shape, label=f"{name} at M={m}", kernel=LM_KERNELS[name])
+
+
+def lm_sweep(dev):
+    """Launch-only: at every M of ``LM_SWEEP`` the kernel of each detect
+    level that M reaches (B1 at level 1, B2 at level 2 from M = 32, B3
+    below it and on the legacy detector) returns finite output of its
+    shape on 2 rows of seeded noise."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    from liquid_usrp_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for m in LM_SWEEP:
+        n = 4 * m + LM_SWEEP_BLOCK
+        x = torch.randn((2, n), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        lag, span = m // 4, 2 * m - m // 4
+        tmpl = np.exp(2j * np.pi * np.arange(2 * m) / 4).astype(np.complex64)
+        n_metric = LM_SWEEP_BLOCK + 2 * m + 1
+        outs = [(kernels.detect_metric_xcorr_onepass(
+            x, tmpl, ofdm_sync._xc_span(2 * m), n_metric), (2, n_metric))]
+        outs += [(v, (2, n - span - lag + 1))
+                 for v in kernels.detect_metric_onepass(x, lag, span)]
+        if m >= 32:
+            outs += [(v, (2, 8)) for v in kernels.detect_candidates_onepass(
+                x, lag, span, m, LM_SWEEP_BLOCK, 0.5, 8)]
+        torch.cuda.synchronize()
+        for out, want in outs:
+            if tuple(out.shape) != want or not bool(
+                    torch.isfinite(out).all()):
+                raise AssertionError(f"sweep at M={m}: an output of shape "
+                                     f"{tuple(out.shape)} (want {want}) or "
+                                     f"not finite")
+    print(f"launch-only sweep: {len(LM_SWEEP)} sizes (M = 8..4,096 by 4, "
+          f"6,144, 8,192), B1 and B3 at each and B2 from M = 32: finite "
+          f"outputs of their shapes, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def lm_sync_rows(sync, stream, device):
+    """Every detected row of ``stream`` through ``sync_block`` block by
+    block on ``device`` (zero-padded to whole blocks, an overlap and a
+    block after it), as host dicts in stream order."""
+    from liquid_usrp_tpu_torch.framing import ofdm_sync
+    bs = sync.block_size
+    n_blk = -(-(len(stream) + sync.overlap) // bs) + 1
+    x = np.zeros(n_blk * bs, np.complex64)
+    x[:len(stream)] = stream
+    st = ofdm_sync.sync_init(sync, device)
+    rows = []
+    for b in range(n_blk):
+        st, res = ofdm_sync.sync_block(
+            sync, st, torch.as_tensor(x[b * bs:(b + 1) * bs], device=device))
+        res = {f: v.cpu().numpy() for f, v in res._asdict().items()}
+        for k in np.nonzero(res["detected"])[0]:
+            rows.append({f: res[f][k] for f in (
+                "t_start", "header_valid", "payload_valid", "header",
+                "payload_len", "payload", "cfo")})
+    return sorted(rows, key=lambda r: int(r["t_start"]))
+
+
+def lm_decode(m, stream, sent, dev):
+    """``sync_block`` on the card at M = ``m`` and its ``LM_CONFIGS``
+    detect config: every sent frame payload-exact, the kernel launched,
+    and the rows of the port's CPU path on the same samples (t_start,
+    flags, valid headers and payloads exact; cfo within 1e-5)."""
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    from liquid_usrp_tpu_torch.ops import kernels
+    xcorr, level, name = LM_CONFIGS[m]
+    sync = ofdm_sync.make_sync(
+        ofdm.make_ofdm_params(m, m // 8, TAPER), block_size=LM_BLOCK,
+        max_payload=LM_MAX_PAYLOAD, max_frames=4, use_pallas=level,
+        xcorr_detect=xcorr)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = lm_sync_rows(sync, stream, dev)
+    card_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if launches[name] <= 0:
+        raise AssertionError(f"M={m}: {name} was not launched")
+    frames = [dict(header=r["header"], payload_valid=bool(r["payload_valid"]),
+                   payload=r["payload"][:int(r["payload_len"])])
+              for r in got]
+    check_sc_frames(f"sync_block at M={m} on the card", frames, sent)
+    want = lm_sync_rows(sync, stream, "cpu")
+    if [int(r["t_start"]) for r in got] != [int(r["t_start"])
+                                            for r in want]:
+        raise AssertionError(f"M={m}: the card's rows start elsewhere than "
+                             f"the CPU's")
+    for g, w in zip(got, want):
+        same = (g["header_valid"] == w["header_valid"] and
+                g["payload_valid"] == w["payload_valid"] and
+                abs(float(g["cfo"]) - float(w["cfo"])) <= 1e-5 and
+                (not g["header_valid"] or
+                 np.array_equal(g["header"], w["header"])) and
+                (not g["payload_valid"] or
+                 np.array_equal(g["payload"], w["payload"])))
+        if not same:
+            raise AssertionError(f"M={m}: the row at {int(g['t_start'])} "
+                                 f"differs from the CPU's")
+    print(f"sync_block at M={m} (xcorr_detect={xcorr}, use_pallas={level}) "
+          f"on the card: {len(sent)}/{len(sent)} payload-exact in "
+          f"{card_s:.2f} s, {len(got)} rows equal to the CPU's; {name} "
+          f"launched {launches[name]} times", flush=True)
+    return launches
+
+
+def rob_blocks(rng):
+    """tests/test_robustness.py's adversarial blocks."""
+    t = np.arange(ROB_BLOCK)
+    return {
+        "zeros": np.zeros(ROB_BLOCK, np.complex64),
+        "dc": np.full(ROB_BLOCK, 0.7 + 0.3j, np.complex64),
+        "tone": np.exp(2j * np.pi * 0.1251 * t).astype(np.complex64),
+        "alias_tone": np.exp(2j * np.pi * t / 12).astype(np.complex64),
+        "impulses": (np.where(t % 257 == 0, 1000.0, 0.0) + 0j
+                     ).astype(np.complex64),
+        "amp_step": np.where(t < ROB_BLOCK // 2, 1e-6, 1e6).astype(
+            np.complex64) * np.exp(1j * 0.3),
+        "denormal": (1e-38 * (rng.normal(size=ROB_BLOCK) +
+                              1j * rng.normal(size=ROB_BLOCK))
+                     ).astype(np.complex64),
+    }
+
+
+def lm_robustness(dev):
+    """tests/test_robustness.py's OFDM promises at detect levels 1 (B1)
+    and 2 (B2) on the card: two blocks of each adversarial kind from a
+    fresh state validate nothing and leave the state finite; after a
+    NaN/Inf block and a flush block, a clean frame decodes payload-exact
+    (and nothing else)."""
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    from liquid_usrp_tpu_torch.ops import kernels
+    params = ofdm.make_ofdm_params(M, CP, TAPER)
+    runs = []
+    for level, name in ((1, "detect_metric_xcorr_onepass"),
+                        (2, "detect_candidates_onepass")):
+        sync = ofdm_sync.make_sync(params, block_size=ROB_BLOCK,
+                                   max_payload=64, max_frames=4,
+                                   use_pallas=level)
+        kernels.reset_launch_counts()
+        for tag, blk in rob_blocks(np.random.default_rng(29)).items():
+            st = ofdm_sync.sync_init(sync, dev)
+            for _ in range(2):
+                st, res = ofdm_sync.sync_block(
+                    sync, st, torch.as_tensor(blk, device=dev))
+            if bool(res.payload_valid.any()) or not bool(
+                    torch.isfinite(st.tail).all()):
+                raise AssertionError(f"level {level}, {tag}: a false frame "
+                                     f"or non-finite state")
+        rng = np.random.default_rng(30)
+        header = rng.integers(0, 256, 8, dtype=np.uint8)
+        payload = rng.integers(0, 256, 48, dtype=np.uint8)
+        burst = ofdm.assemble_frame(params, ofdm.default_props(),
+                                    torch.as_tensor(header),
+                                    torch.as_tensor(payload)).numpy()
+        clean = np.zeros(ROB_BLOCK, np.complex64)
+        clean[500:500 + len(burst)] = burst
+        clean += (0.005 * (rng.normal(size=ROB_BLOCK) + 1j *
+                           rng.normal(size=ROB_BLOCK))).astype(np.complex64)
+        st = ofdm_sync.sync_init(sync, dev)
+        st, _ = ofdm_sync.sync_block(sync, st, torch.as_tensor(
+            np.full(ROB_BLOCK, np.nan + 1j * np.inf, np.complex64),
+            device=dev))
+        got = []
+        zero = np.zeros(ROB_BLOCK, np.complex64)
+        for blk in (zero, clean, zero, zero):
+            st, res = ofdm_sync.sync_block(sync, st,
+                                           torch.as_tensor(blk, device=dev))
+            for k in torch.nonzero(res.payload_valid).flatten().tolist():
+                got.append(res.payload[k][:int(res.payload_len[k])].cpu()
+                           .numpy())
+        if len(got) != 1 or not np.array_equal(got[0], payload):
+            raise AssertionError(f"level {level}: {len(got)} frames after "
+                                 f"the NaN/Inf block")
+        if kernels.launches[name] <= 0:
+            raise AssertionError(f"level {level}: {name} was not launched")
+        runs.append(dict(kernels.launches))
+        print(f"robustness at level {level} on the card: "
+              f"{len(rob_blocks(rng))} adversarial kinds, no false frame, "
+              f"finite state; the frame after the NaN/Inf block "
+              f"payload-exact; {name} launched {kernels.launches[name]} "
+              f"times", flush=True)
+    return runs
+
+
+def run_large_m(dev, label):
+    """Phase 29: B1-B3 at the sizes where they leave their M=48 tilings,
+    held to their plain versions at the app's shapes and timed; the
+    launch-only sweep; ``sync_block`` on the card at M = 512, 1,028 and
+    1,152; the robustness blocks at levels 1 and 2; ``ofdmflexframe_rx``
+    and ``multichannel_rx`` at ``-M 1028``.  Returns (launches per run,
+    the kernels' times by M)."""
+    from liquid_usrp_tpu_torch.apps import (multichannel_rx, multichannel_tx,
+                                            ofdmflexframe_rx)
+    from liquid_usrp_tpu_torch.framing import ofdm
+    from liquid_usrp_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    runs, times = [], {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for m in LM_CONFIGS:
+            path = str(Path(tmpdir) / f"ofdm{m}.iq")
+            stream, sent = sc_transmit(path, m, m // 8, LM_FRAMES,
+                                       LM_PAYLOAD)
+            params = ofdm.make_ofdm_params(m, m // 8, TAPER)
+            # the app's first dispatch: the file, then 0.01-rms noise
+            rng = np.random.default_rng(m)
+            n = SC_BATCH * SC_BLOCK
+            padded = (0.01 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+                      ).astype(np.complex64)
+            padded[:len(stream)] += stream[:n]
+            times[m] = lm_kernels(m, sc_windows(params, padded, dev),
+                                  params)
+            runs.append(lm_decode(m, stream, sent, dev))
+        lm_sweep(dev)
+        runs += lm_robustness(dev)
+        kernels.reset_launch_counts()
+        text = run_app(ofdmflexframe_rx.main,
+                       ["-i", str(Path(tmpdir) / "ofdm1028.iq"), "-M",
+                        "1028", "-C", "128", "-T", str(TAPER), "-q"])
+        n_of = app_count(text, "valid packets")
+        mc = str(Path(tmpdir) / "mc1028.iq")
+        run_app(multichannel_tx.main, ["-o", mc, "-n", "2", "-N", "3",
+                                       "-P", str(LM_PAYLOAD), "-M", "1028",
+                                       "-C", "128"])
+        text = run_app(multichannel_rx.main, ["-i", mc, "-n", "2", "-M",
+                                              "1028", "-C", "128"])
+        n_mc = app_count(text, "valid packets")
+        runs.append(dict(kernels.launches))
+        if n_of != LM_FRAMES or n_mc != 6:
+            raise AssertionError(f"-M 1028: ofdmflexframe_rx {n_of}/"
+                                 f"{LM_FRAMES}, multichannel_rx {n_mc}/6 "
+                                 f"valid")
+        if runs[-1]["detect_metric_xcorr_onepass"] <= 0:
+            raise AssertionError("-M 1028: B1 was not launched")
+    print(f"-M 1028 on the card: ofdmflexframe_rx {n_of}/{LM_FRAMES} and "
+          f"multichannel_rx {n_mc}/6 valid (B1 launched "
+          f"{runs[-1]['detect_metric_xcorr_onepass']} times)", flush=True)
+    print("large M on " + label + ", kernel device time (us), bound (us, "
+          "by), share: " + "; ".join(
+              f"{t_name} at M={m} {t['kernel_ms'] * 1e3:.2f}, "
+              f"{t['bound_ms'] * 1e3:.2f} ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['kernel_ms']:.1%}"
+              for m, t in times.items()
+              for t_name in [LM_CONFIGS[m][2]]) +
+          f"; phase 29 {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, times
 
 
 def main() -> int:
@@ -3490,6 +3856,8 @@ def main() -> int:
     path_runs += fid_runs
     for name, n in fid_sweep.items():
         launches[name] += n
+    lm_runs, _ = run_large_m(dev, label)
+    path_runs += lm_runs
     with tempfile.TemporaryDirectory() as tmpdir:
         stream_launch, stream_ctx = run_streaming(blocks, flush, weights,
                                                   expected, dev, tmpdir,

@@ -46,9 +46,20 @@
 //   float4 (4 metrics, or 2 c); each row's unaligned head and tail go out as
 //   scalars (n_out is odd at the single-channel shapes).
 // * The geometry of M = 48 is a template instance, so its loops unroll with
-//   constant bounds; every other geometry runs the generic instance.
+//   constant bounds; every other geometry that the kernel takes runs the
+//   generic instance.
+//
+// The tile must hold span + lag offsets and span must exceed B3_R, so this
+// kernel takes span + lag <= B3_CAP - 3 (OFDM M up to 1,150) and span > 9.
+// Any other geometry runs two passes through device memory:
+// ws_lag_sums_kernel (window_sums.cuh) writes c straight to the output and
+// e1 to the caller's scratch, with windows of any length split at the
+// multiples of span (no subtraction, as here), and autocorr_gate_kernel
+// makes the floor-gated metric from them.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "window_sums.cuh"
 
 #define B3_R 9                // offsets per thread chunk (odd)
 #define B3_BLOCKS_PER_SM 3    // resident blocks an SM takes at most
@@ -267,6 +278,12 @@ autocorr_metric_kernel(const float2* __restrict__ ext, int rows, int len,
 typedef void (*MetricKernel)(const float2*, int, int, int, int, const float*,
                              int, float*, float2*);
 
+// Whether the persistent kernel above takes the geometry: B3_R < span and a
+// tile of at least 4 outputs.
+static bool metric_one_pass(int lag, int span) {
+  return span > B3_R && b3_tile(lag, span) >= 4;
+}
+
 // The instantiation for a geometry: M = 48, the one the paths run, else
 // the generic one.
 static MetricKernel metric_kernel(int lag, int span) {
@@ -274,18 +291,11 @@ static MetricKernel metric_kernel(int lag, int span) {
   return autocorr_metric_kernel<0, 0>;
 }
 
-// ext: [rows, len] complex64 on the device; floors: [rows] float.
-// Outputs [rows, n_out], 16-byte aligned: metric float, c complex64
-// (float2).  The geometry must have B3_R < span and a tile of at least 4
-// outputs (span + lag <= B3_CAP - 3).  Returns the CUDA error code of the
-// launch (0 = success; cudaErrorInvalidValue for what it does not take).
-extern "C" int autocorr_metric_launch(const void* ext, int rows, int len,
-                                      int lag, int span, const void* floors,
-                                      int n_out, void* metric, void* c,
-                                      void* stream) {
-  if (rows <= 0 || lag <= 0 || span <= B3_R || n_out <= 0 ||
-      n_out != len - span - lag + 1 || b3_tile(lag, span) < 4 ||
-      (((uintptr_t)metric | (uintptr_t)c) & 15) != 0)
+static int metric_launch_one_pass(const float2* ext, int rows, int len,
+                                  int lag, int span, const float* floors,
+                                  int n_out, float* metric, float2* c,
+                                  cudaStream_t st) {
+  if ((((uintptr_t)metric | (uintptr_t)c) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const int TO = b3_tile(lag, span);
   const long long items = (long long)rows * ((n_out + TO - 1) / TO);
@@ -311,8 +321,59 @@ extern "C" int autocorr_metric_launch(const void* ext, int rows, int len,
   if (per_sm > B3_BLOCKS_PER_SM) per_sm = B3_BLOCKS_PER_SM;
   const long long grid = items < (long long)per_sm * sms
                              ? items : (long long)per_sm * sms;
-  kern<<<(int)grid, B3_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)ext, rows, len, lag, span, (const float*)floors, n_out,
-      (float*)metric, (float2*)c);
+  kern<<<(int)grid, B3_THREADS, smem, st>>>(ext, rows, len, lag, span,
+                                            floors, n_out, metric, c);
+  return (int)cudaGetLastError();
+}
+
+// The floor-gated metric of every output from the window sums c and e1.
+static __global__ void __launch_bounds__(WS_THREADS)
+autocorr_gate_kernel(const float2* __restrict__ c,
+                     const float* __restrict__ e1, long long rows,
+                     long long n_out, int lag,
+                     const float* __restrict__ floors,
+                     float* __restrict__ metric) {
+  const long long i = (long long)blockIdx.x * WS_THREADS + threadIdx.x;
+  if (i >= rows * n_out) return;
+  const long long row = i / n_out;
+  const float* e = e1 + row * (n_out + lag) + (i - row * n_out);
+  metric[i] = ws_metric(c[i], e[0], e[lag], floors[row]);
+}
+
+// Bytes of scratch that autocorr_metric_launch needs at this geometry (0
+// for the persistent kernel).
+extern "C" long long autocorr_metric_scratch(int rows, int n_out, int lag,
+                                             int span) {
+  if (metric_one_pass(lag, span)) return 0;
+  return 4LL * rows * ((long long)n_out + lag);
+}
+
+// ext: [rows, len] complex64 on the device; floors: [rows] float.
+// Outputs [rows, n_out], n_out = len - span - lag + 1: metric float, c
+// complex64 (float2), 16-byte aligned.  scratch: autocorr_metric_scratch
+// bytes on the device.  Returns the CUDA error code of the launches (0 =
+// success; cudaErrorInvalidValue for what it does not take).
+extern "C" int autocorr_metric_launch(const void* ext, int rows, int len,
+                                      int lag, int span, const void* floors,
+                                      int n_out, void* metric, void* c,
+                                      void* scratch, void* stream) {
+  if (rows <= 0 || lag <= 0 || span <= 0 || n_out <= 0 ||
+      n_out != len - span - lag + 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (metric_one_pass(lag, span))
+    return metric_launch_one_pass((const float2*)ext, rows, len, lag, span,
+                                  (const float*)floors, n_out,
+                                  (float*)metric, (float2*)c, st);
+  float* e1 = (float*)scratch;
+  cudaError_t err = ws_lag_sums((const float2*)ext, rows, len, lag, span,
+                                n_out, (float2*)c, e1, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid =
+      ((long long)rows * n_out + WS_THREADS - 1) / WS_THREADS;
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  autocorr_gate_kernel<<<(unsigned)grid, WS_THREADS, 0, st>>>(
+      (const float2*)c, e1, rows, n_out, lag, (const float*)floors,
+      (float*)metric);
   return (int)cudaGetLastError();
 }

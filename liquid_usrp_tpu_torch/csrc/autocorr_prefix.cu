@@ -53,18 +53,28 @@ autocorr_prefix_kernel(const float* __restrict__ cre,
 
 // cre, cim: [rows, len - lag + 1], cp: [rows, len + 1] float on the device;
 // floors: [rows] float.  Outputs [rows, n_out]: metric float, c complex64.
-// Returns the CUDA error code of the launch (0 = success).
+// Rows go in runs of the grid's y limit.  Returns the CUDA error code of
+// the launches (0 = success).
 extern "C" int autocorr_prefix_launch(const void* cre, const void* cim,
                                       const void* cp, int rows, int len,
                                       int lag, int span, const void* floors,
                                       int n_out, void* metric, void* c,
                                       void* stream) {
-  if (rows <= 0 || rows > 65535 || lag <= 0 || span <= 0 || n_out <= 0 ||
+  if (rows <= 0 || lag <= 0 || span <= 0 || n_out <= 0 ||
       n_out != len - span - lag + 1)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n_out + AP_THREADS - 1) / AP_THREADS, rows);
-  autocorr_prefix_kernel<<<grid, AP_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)cre, (const float*)cim, (const float*)cp, len, lag, span,
-      (const float*)floors, n_out, (float*)metric, (float2*)c);
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  for (int r0 = 0; err == cudaSuccess && r0 < rows; r0 += 65535) {
+    const int nr = rows - r0 < 65535 ? rows - r0 : 65535;
+    const long long pc = (long long)r0 * (len - lag + 1);
+    const long long o = (long long)r0 * n_out;
+    dim3 grid((n_out + AP_THREADS - 1) / AP_THREADS, nr);
+    autocorr_prefix_kernel<<<grid, AP_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)cre + pc, (const float*)cim + pc,
+        (const float*)cp + (long long)r0 * (len + 1), len, lag, span,
+        (const float*)floors + r0, n_out, (float*)metric + o,
+        (float2*)c + o);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }

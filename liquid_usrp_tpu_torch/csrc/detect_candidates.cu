@@ -49,10 +49,22 @@
 //   scans the parts of the at most 8 threads it spans, in order, so ties
 //   go to the lowest offset, and writes c there from shared memory.
 // * The geometry of M = 48 is a template instance, so its loops unroll
-//   with constant bounds and no bounds tests.
+//   with constant bounds and no bounds tests; every other geometry that
+//   the kernel takes runs the generic instance.
+//
+// A block's halo (2*win + 2*lag + span - 1, about 4.25 M samples) must
+// leave a tile of at least CAND_SEG of its CAND_SPAN offsets, and span is
+// at most 3 * CAND_THREADS + CAND_PAD, so the one-pass kernel takes OFDM M
+// up to 475.  Every other geometry, up to any M the JAX package takes, runs
+// three passes through device memory whose windows need no halo on chip
+// (see the second half of this file and window_sums.cuh); it writes and
+// reads back c, e1 and a score per output, about 40 B an output against
+// the one-pass kernel's 8.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "window_sums.cuh"
 
 #define CAND_SEG 64       // outputs per reduced segment
 #define CAND_R 9          // offsets per thread chunk (odd)
@@ -72,10 +84,14 @@ __host__ __device__ constexpr int cand_tile(int lag, int span, int win) {
 // (later the metric, its in-chunk prefix max and Re c), 3 planes of chunk
 // totals (later the chunk maxima and the segment parts' scores), and a
 // pad.  Every thread computes all CAND_R offsets of its chunk with no
-// bounds test: offsets past the tile give values no output reads.
-__host__ __device__ constexpr int cand_smem_floats(int lag) {
+// bounds test: offsets past the tile give values no output reads, and the
+// pad (CAND_PAD, or K + 1 floats for the K = (span - 1) / CAND_R chunk
+// totals that the last thread's windows read past the third plane, if
+// more) keeps those reads inside the block's memory.
+__host__ __device__ constexpr int cand_smem_floats(int lag, int span) {
   return 2 * (CAND_SPAN + lag + 2) + 3 * CAND_SPAN + 3 * CAND_THREADS +
-         CAND_PAD;
+         ((span - 1) / CAND_R + 1 > CAND_PAD ? (span - 1) / CAND_R + 1
+                                             : CAND_PAD);
 }
 
 __device__ inline float2 cand_sample(const float2* __restrict__ row, int len,
@@ -297,6 +313,15 @@ typedef void (*CandKernel)(const float2*, int, int, int, int, int, float,
                            const float*, int, int, float*, int*, float*,
                            float*);
 
+// Whether the one-pass kernel above takes the geometry: CAND_R < span,
+// CAND_R <= 2 win, a tile of at least one segment and the span's staged
+// samples within the block's threads.
+static bool cand_one_pass(int lag, int span, int win) {
+  return span > CAND_R && 2 * win >= CAND_R &&
+         cand_tile(lag, span, win) >= CAND_SEG &&
+         span <= 3 * CAND_THREADS + CAND_PAD;
+}
+
 // The instantiation for a geometry: M = 48, the one the paths run, else
 // the generic one.
 static CandKernel cand_kernel(int lag, int span, int win) {
@@ -305,22 +330,13 @@ static CandKernel cand_kernel(int lag, int span, int win) {
   return detect_candidates_kernel<0, 0, 0>;
 }
 
-// ext: [rows, len] complex64 on the device; floors: [rows] float.
-// Outputs [rows, n_seg]: segval float, segarg int32, segcre/segcim float.
-// Returns the CUDA error code of the launch (0 = success).
-extern "C" int detect_candidates_launch(const void* ext, int rows, int len,
-                                        int lag, int span, int win, int T,
-                                        float thr, const void* floors,
-                                        int n_out, int n_seg, void* segval,
-                                        void* segarg, void* segcre,
-                                        void* segcim, void* stream) {
+static int cand_launch_one_pass(const float2* ext, int rows, int len,
+                                int lag, int span, int win, int T, float thr,
+                                const float* floors, int n_out, int n_seg,
+                                float* segval, int* segarg, float* segcre,
+                                float* segcim, cudaStream_t st) {
   const int TO = cand_tile(lag, span, win);
-  if (rows <= 0 || len <= 0 || lag <= 0 || span <= CAND_R ||
-      2 * win < CAND_R || n_out <= 0 || n_seg <= 0 ||
-      (long long)n_seg * CAND_SEG < n_out || rows > 65535 ||
-      TO < CAND_SEG || span > 3 * CAND_THREADS + CAND_PAD)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)cand_smem_floats(lag);
+  const size_t smem = sizeof(float) * (size_t)cand_smem_floats(lag, span);
   // all of the SM's shared memory for blocks: three blocks share an SM
   const CandKernel kern = cand_kernel(lag, span, win);
   cudaError_t err = cudaFuncSetAttribute(
@@ -330,11 +346,162 @@ extern "C" int detect_candidates_launch(const void* ext, int rows, int len,
     err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
+  // rows in runs of the grid's y limit
+  for (int r0 = 0; err == cudaSuccess && r0 < rows; r0 += 65535) {
+    const int nr = rows - r0 < 65535 ? rows - r0 : 65535;
+    const long long o = (long long)r0 * n_seg;
+    dim3 grid((n_seg * CAND_SEG + TO - 1) / TO, nr);
+    kern<<<grid, CAND_THREADS, smem, st>>>(
+        ext + (long long)r0 * len, len, lag, span, win, T, thr, floors + r0,
+        n_out, n_seg, segval + o, segarg + o, segcre + o, segcim + o);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// Every other geometry: three passes through device memory, with windows of
+// any length in the split form of window_sums.cuh (each window a sum or max
+// of its own terms only, as above):
+// 1. ws_lag_sums_kernel: c [n_out] and e1 [n_out + lag] of each row;
+// 2. cand_nms_kernel: the 2 win + 1 NMS max over the metric (made from c
+//    and e1; -inf outside [0, n_out), as the plain version pads) and the
+//    score of every output n < n_seg * 64;
+// 3. cand_seg_kernel: each segment's max score, its first offset and c
+//    there.
+// c, e1 and the scores live in the caller's scratch (its bytes from
+// detect_candidates_scratch).
+// ---------------------------------------------------------------------------
+
+struct CandNms {
+  const float2* c;  // this row's [n_out]
+  const float* e1;  // this row's [n_out + lag]
+  long long n_out;
+  int lag, win, T;
+  float thr, floor_v;
+  float* score;     // this row's [n_seg * CAND_SEG]
+  __device__ float metric(long long v) const {
+    if (v < 0 || v >= n_out) return -INFINITY;
+    return ws_metric(c[v], e1[v], e1[v + lag], floor_v);
+  }
+  // term t of output n's window [n - win, n + win] is metric[t - win]
+  __device__ WsVec<1> term(long long t) const {
+    WsVec<1> r;
+    r.v[0] = metric(t - win);
+    return r;
+  }
+  __device__ void put(long long n, const WsVec<1>& v) { score[n] = v.v[0]; }
+  __device__ WsVec<1> get(long long n) const {
+    WsVec<1> r;
+    r.v[0] = score[n];
+    return r;
+  }
+  __device__ void done(long long n, const WsVec<1>& lmax) {
+    const float mv = metric(n);
+    const bool ok = (mv >= lmax.v[0]) && (mv > thr) && (n >= win) &&
+                    (n < (long long)T + win) && (n < n_out);
+    score[n] = ok ? mv : -1.f;
+  }
+};
+
+static __global__ void __launch_bounds__(WS_THREADS)
+cand_nms_kernel(const float2* __restrict__ c, const float* __restrict__ e1,
+                long long rows, long long n_out, int lag, int win, int T,
+                float thr, const float* __restrict__ floors, long long n_u,
+                long long nblk, float* __restrict__ score) {
+  long long row, b;
+  if (!ws_warp(rows, nblk, &row, &b)) return;
+  CandNms acc{c + row * n_out, e1 + row * (n_out + lag), n_out, lag, win, T,
+              thr, floors[row], score + row * n_u};
+  ws_block<1, true>(acc, b, 2 * win + 1, n_u, threadIdx.x & 31);
+}
+
+// One thread a (row, segment): the first offset of the segment's max
+// score (ties keep the lowest) and c there.
+static __global__ void __launch_bounds__(CAND_THREADS)
+cand_seg_kernel(const float* __restrict__ score, const float2* __restrict__ c,
+                long long rows, long long n_out, int n_seg,
+                float* __restrict__ segval, int* __restrict__ segarg,
+                float* __restrict__ segcre, float* __restrict__ segcim) {
+  const long long i = (long long)blockIdx.x * CAND_THREADS + threadIdx.x;
+  if (i >= rows * n_seg) return;
+  const long long row = i / n_seg;
+  const float* s = score + i * CAND_SEG;
+  float best_v = -2.f;
+  int best_j = 0;
+  for (int j = 0; j < CAND_SEG; ++j) {
+    const float v = s[j];
+    if (v > best_v) {
+      best_v = v;
+      best_j = j;
+    }
+  }
+  const long long n = (i - row * n_seg) * CAND_SEG + best_j;
+  const float2 cv = c[row * n_out + (n < n_out ? n : n_out - 1)];
+  segval[i] = best_v;
+  segarg[i] = (int)n;
+  segcre[i] = cv.x;
+  segcim[i] = cv.y;
+}
+
+static size_t cand_align(long long bytes) {
+  return (size_t)((bytes + 255) & ~255LL);
+}
+
+// Bytes of scratch that detect_candidates_launch needs at this geometry
+// (0 for the one-pass kernel).
+extern "C" long long detect_candidates_scratch(int rows, int n_out, int lag,
+                                               int span, int win,
+                                               int n_seg) {
+  if (cand_one_pass(lag, span, win)) return 0;
+  return (long long)(cand_align(8LL * rows * n_out) +
+                     cand_align(4LL * rows * ((long long)n_out + lag)) +
+                     cand_align(4LL * rows * n_seg * CAND_SEG));
+}
+
+// ext: [rows, len] complex64 on the device; floors: [rows] float; n_out =
+// len - span - lag + 1.  Outputs [rows, n_seg]: segval float, segarg
+// int32, segcre/segcim float.  scratch: detect_candidates_scratch bytes on
+// the device.  Returns the CUDA error code of the launches (0 = success).
+extern "C" int detect_candidates_launch(const void* ext, int rows, int len,
+                                        int lag, int span, int win, int T,
+                                        float thr, const void* floors,
+                                        int n_out, int n_seg, void* segval,
+                                        void* segarg, void* segcre,
+                                        void* segcim, void* scratch,
+                                        void* stream) {
+  if (rows <= 0 || len <= 0 || lag <= 0 || span <= 0 || win < 0 ||
+      n_out <= 0 || n_out != len - span - lag + 1 || n_seg <= 0 ||
+      (long long)n_seg * CAND_SEG < n_out)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cand_one_pass(lag, span, win))
+    return cand_launch_one_pass(
+        (const float2*)ext, rows, len, lag, span, win, T, thr,
+        (const float*)floors, n_out, n_seg, (float*)segval, (int*)segarg,
+        (float*)segcre, (float*)segcim, st);
+  char* sp = (char*)scratch;
+  float2* c = (float2*)sp;
+  float* e1 = (float*)(sp + cand_align(8LL * rows * n_out));
+  float* score = (float*)((char*)e1 +
+                          cand_align(4LL * rows * ((long long)n_out + lag)));
+  cudaError_t err = ws_lag_sums((const float2*)ext, rows, len, lag, span,
+                                n_out, c, e1, st);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_seg * CAND_SEG + TO - 1) / TO, rows);
-  kern<<<grid, CAND_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)ext, len, lag, span, win, T, thr, (const float*)floors,
-      n_out, n_seg, (float*)segval, (int*)segarg, (float*)segcre,
-      (float*)segcim);
+  const long long n_u = (long long)n_seg * CAND_SEG;
+  const long long nblk = (n_u + 2 * win) / (2 * win + 1);
+  const long long grid = ws_grid(rows, nblk);
+  const long long sgrid =
+      ((long long)rows * n_seg + CAND_THREADS - 1) / CAND_THREADS;
+  if (grid > 0x7fffffff || sgrid > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;
+  cand_nms_kernel<<<(unsigned)grid, WS_THREADS, 0, st>>>(
+      c, e1, rows, n_out, lag, win, T, thr, (const float*)floors, n_u, nblk,
+      score);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cand_seg_kernel<<<(unsigned)sgrid, CAND_THREADS, 0, st>>>(
+      score, c, rows, n_out, n_seg, (float*)segval, (int*)segarg,
+      (float*)segcre, (float*)segcim);
   return (int)cudaGetLastError();
 }

@@ -29,20 +29,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
-    # ext, rows, len, tre, tim, ea, n_tmpl, span, n_metric, floors, out,
-    # stream
-    "xcorr_metric_launch": [_VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _VP,
-                            _VP, _VP],
+    # ext, rows, len, tre, tim, ea, tmpl, ea_d, n_tmpl, span, n_metric,
+    # floors, out, stream
+    "xcorr_metric_launch": ([_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                             _I, _VP, _VP, _VP], _I),
     # ext, rows, len, lag, span, win, T, thr, floors, n_out, n_seg,
-    # segval, segarg, segcre, segcim, stream
-    "detect_candidates_launch": [_VP, _I, _I, _I, _I, _I, _I, _F, _VP, _I,
-                                 _I, _VP, _VP, _VP, _VP, _VP],
-    # ext, rows, len, lag, span, floors, n_out, metric, c, stream
-    "autocorr_metric_launch": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _VP],
+    # segval, segarg, segcre, segcim, scratch, stream
+    "detect_candidates_launch": ([_VP, _I, _I, _I, _I, _I, _I, _F, _VP, _I,
+                                  _I, _VP, _VP, _VP, _VP, _VP, _VP], _I),
+    # rows, n_out, lag, span, win, n_seg -> scratch bytes
+    "detect_candidates_scratch": ([_I, _I, _I, _I, _I, _I], _LL),
+    # ext, rows, len, lag, span, floors, n_out, metric, c, scratch, stream
+    "autocorr_metric_launch": ([_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP,
+                                _VP, _VP], _I),
+    # rows, n_out, lag, span -> scratch bytes
+    "autocorr_metric_scratch": ([_I, _I, _I, _I], _LL),
     # cre, cim, cp, rows, len, lag, span, floors, n_out, metric, c, stream
-    "autocorr_prefix_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP,
-                               _VP, _VP],
+    "autocorr_prefix_launch": ([_VP, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP,
+                                _VP, _VP], _I),
 }
 
 _LIB: list = []
@@ -108,10 +114,10 @@ def load_library() -> ctypes.CDLL:
             for o in [*objs, tmp]:
                 o.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     _INFO.update(path=str(out), seconds=time.perf_counter() - t0,
                  built=built, log=log)
     _LIB.append(lib)

@@ -69,14 +69,48 @@ def _row_floor(p_sum: torch.Tensor, n: int, span: int,
     return floor_scale * span * (p_sum / n + 1e-12)
 
 
-def _launch(fn_name: str, ext: torch.Tensor, *args) -> None:
+def _lib():
     from ._build import load_library
-    lib = load_library()
+    return load_library()
+
+
+def _where(geometry: dict) -> str:
+    return ", ".join(f"{k}={v}" for k, v in geometry.items())
+
+
+def _launch(fn_name: str, ext: torch.Tensor, geometry: dict, *args) -> None:
+    """Runs the launch function ``fn_name`` on ``ext``'s device and current
+    stream; a launch that refuses or fails raises with ``geometry``."""
     with torch.cuda.device(ext.device):
         stream = torch.cuda.current_stream(ext.device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
+        rc = getattr(_lib(), fn_name)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} at "
+                           f"{_where(geometry)}")
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(fn_name: str, *args) -> int:
+    return int(getattr(_lib(), fn_name)(*args))
+
+
+def _scratch(fn_name: str, device, geometry: dict, *args):
+    """The device scratch a launch asks for (``fn_name`` gives its bytes),
+    or ``None`` where it needs none (the one-pass kernels); out of device
+    memory, raises with ``geometry``."""
+    nbytes = _scratch_bytes(fn_name, *args)
+    if not nbytes:
+        return None
+    try:
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
+    except torch.OutOfMemoryError as err:
+        raise torch.OutOfMemoryError(
+            f"{fn_name}: {nbytes} bytes of scratch at {_where(geometry)}: "
+            f"{err}") from err
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +155,22 @@ def _xcorr_consts(tmpl_bytes: bytes, span: int):
             np.ascontiguousarray(tmpl.imag, np.float32), ea)
 
 
+# (taps, span) of the M=48 template, which B1's kernel keeps in
+# __constant__ memory (csrc/xcorr_metric.cu)
+_XC_CONST_GEOMETRY = (96, 24)
+
+
+@functools.lru_cache(maxsize=16)
+def _xcorr_device_consts(tmpl_bytes: bytes, span: int, device: str):
+    """(template complex64, segment energies float32) on ``device``: where
+    B1's kernel reads the taps of a template other than M=48's, which it
+    keeps in ``__constant__`` memory."""
+    ea = _xcorr_consts(tmpl_bytes, span)[2]
+    return (torch.tensor(np.frombuffer(tmpl_bytes, np.complex64),
+                         device=device),
+            torch.tensor(ea, device=device))
+
+
 def detect_metric_xcorr_onepass(ext: torch.Tensor, tmpl: np.ndarray,
                                 span: int, n_metric: int,
                                 floor_scale: float = 1e-4) -> torch.Tensor:
@@ -142,16 +192,22 @@ def detect_metric_xcorr_onepass(ext: torch.Tensor, tmpl: np.ndarray,
         raise RuntimeError(f"no kernel for device {x.device}")
     x = x.contiguous()
     rows, length = x.shape
-    tre, tim, ea = _xcorr_consts(tmpl.tobytes(), span)
+    tmpl_bytes = tmpl.tobytes()
+    tre, tim, ea = _xcorr_consts(tmpl_bytes, span)
     denom = max(length, _xcorr_padded_len(n_metric, span, len(tmpl)))
     floors = _row_floor((x.real ** 2 + x.imag ** 2).sum(-1), denom, span,
                         floor_scale).to(torch.float32).contiguous()
     out = torch.empty((rows, n_metric), dtype=torch.float32, device=x.device)
-    _launch("xcorr_metric_launch", x, x.data_ptr(), rows, length,
+    dtmpl = dea = None
+    if (len(tmpl), span) != _XC_CONST_GEOMETRY:
+        dtmpl, dea = _xcorr_device_consts(tmpl_bytes, span, str(x.device))
+    _launch("xcorr_metric_launch", x,
+            dict(rows=rows, len=length, n_tmpl=len(tmpl), span=span,
+                 n_metric=n_metric), x.data_ptr(), rows, length,
             tre.ctypes.data_as(ctypes.c_void_p),
             tim.ctypes.data_as(ctypes.c_void_p),
-            ea.ctypes.data_as(ctypes.c_void_p), len(tmpl), span, n_metric,
-            floors.data_ptr(), out.data_ptr())
+            ea.ctypes.data_as(ctypes.c_void_p), _ptr(dtmpl), _ptr(dea),
+            len(tmpl), span, n_metric, floors.data_ptr(), out.data_ptr())
     launches["detect_metric_xcorr_onepass"] += 1
     return out.reshape(*lead, n_metric)
 
@@ -261,10 +317,13 @@ def _detect_candidates_cuda(x, lag, span, win, T, threshold, k,
     segarg = torch.empty((rows, n_seg), dtype=torch.int32, device=dev)
     segcre = torch.empty((rows, n_seg), dtype=torch.float32, device=dev)
     segcim = torch.empty((rows, n_seg), dtype=torch.float32, device=dev)
-    _launch("detect_candidates_launch", x, x.data_ptr(), rows, length, lag,
-            span, win, T, float(threshold), floors.data_ptr(), n_out, n_seg,
-            segval.data_ptr(), segarg.data_ptr(), segcre.data_ptr(),
-            segcim.data_ptr())
+    geometry = dict(rows=rows, len=length, lag=lag, span=span, win=win)
+    scratch = _scratch("detect_candidates_scratch", dev, geometry, rows,
+                       n_out, lag, span, win, n_seg)
+    _launch("detect_candidates_launch", x, geometry, x.data_ptr(), rows,
+            length, lag, span, win, T, float(threshold), floors.data_ptr(),
+            n_out, n_seg, segval.data_ptr(), segarg.data_ptr(),
+            segcre.data_ptr(), segcim.data_ptr(), _ptr(scratch))
     launches["detect_candidates_onepass"] += 1
     # segment-rate second stage, as the JAX wrapper runs lax.top_k
     vals, seg_idx = torch.topk(segval, k, dim=-1)
@@ -321,19 +380,21 @@ def _autocorr_metric_cuda(x, lag, span, floor_scale, metric, c):
     rows, length = x.shape
     floors = _row_floor((x.real ** 2 + x.imag ** 2).sum(-1), length, span,
                         floor_scale).contiguous()
-    _launch("autocorr_metric_launch", x, x.data_ptr(), rows, length, lag,
-            span, floors.data_ptr(), metric.shape[-1], metric.data_ptr(),
-            c.data_ptr())
+    n_out = metric.shape[-1]
+    geometry = dict(rows=rows, len=length, lag=lag, span=span)
+    scratch = _scratch("autocorr_metric_scratch", x.device, geometry, rows,
+                       n_out, lag, span)
+    _launch("autocorr_metric_launch", x, geometry, x.data_ptr(), rows,
+            length, lag, span, floors.data_ptr(), n_out, metric.data_ptr(),
+            c.data_ptr(), _ptr(scratch))
 
 
 def detect_metric_onepass(ext: torch.Tensor, lag: int, span: int,
                           floor_scale: float = 1e-4):
     """Kernel B3: the Schmidl-Cox metric and lag correlation ``(metric,
     c)`` for every offset of each window, as :func:`autocorr_metric`
-    defines them, summed tile-locally in float32 on the card (chunked
-    window sums, no subtraction).  The kernel takes ``9 < span`` and
-    ``span + lag <= 2301`` (OFDM M up to 1,150); beyond, a CUDA tensor
-    raises ``RuntimeError`` (its launch refuses the geometry)."""
+    defines them, summed in float32 on the card with no subtraction (any
+    ``span`` and ``lag``)."""
     return _metric_rows("detect_metric_onepass", autocorr_metric,
                         _autocorr_metric_cuda, ext, lag, span, floor_scale)
 
@@ -377,9 +438,11 @@ def _autocorr_prefix_cuda(x, lag, span, floor_scale, metric, c):
     rows, length = x.shape
     cre, cim, cp, p_sum = _prefix_sums(x, lag)
     floors = _row_floor(p_sum, length, span, floor_scale).contiguous()
-    _launch("autocorr_prefix_launch", x, cre.data_ptr(), cim.data_ptr(),
-            cp.data_ptr(), rows, length, lag, span, floors.data_ptr(),
-            metric.shape[-1], metric.data_ptr(), c.data_ptr())
+    _launch("autocorr_prefix_launch", x,
+            dict(rows=rows, len=length, lag=lag, span=span),
+            cre.data_ptr(), cim.data_ptr(), cp.data_ptr(), rows, length, lag,
+            span, floors.data_ptr(), metric.shape[-1], metric.data_ptr(),
+            c.data_ptr())
 
 
 def detect_metric_fused_2d(ext: torch.Tensor, lag: int, span: int,

@@ -22,9 +22,9 @@ card's maximum SM clock.  The phases:
   segment parts, the segment picks and writes;
 * B3: stores (with the first tile's copy issue), the next tile's copy
   issue, the wait for this tile's samples, lag products, window sums,
-  metric and staging, the last tile's stores.  ``--csrc`` of a checkout
-  from before B3's redesign times its single-pass B3 instead:
-  staging with lag products, then span sums, metric and stores.
+  metric and staging, the last tile's stores.  ``--csrc`` times another
+  checkout's sources, whose launch functions must take this checkout's
+  arguments.
 
 The instrumented kernels are slower than the real ones by the counter
 reads; compare phases with each other, not with ``chip_smoke.py``'s
@@ -202,10 +202,11 @@ def main(argv=None) -> int:
                         "xcorr_metric_kernel")
     lib = build("xcorr_metric", src, csrc)
     fn = lib.xcorr_metric_launch
-    fn.argtypes = _build._SIGNATURES["xcorr_metric_launch"]
+    fn.argtypes = _build._SIGNATURES["xcorr_metric_launch"][0]
+    # the M=48 template goes to __constant__ memory: no device copy
     run3(lib, lambda: fn(x.data_ptr(), rows, length, tre.ctypes.data_as(vp),
                          tim.ctypes.data_as(vp), ea.ctypes.data_as(vp),
-                         2 * M, 24, n_metric, floors.data_ptr(),
+                         None, None, 2 * M, 24, n_metric, floors.data_ptr(),
                          out.data_ptr(), stream))
     report(lib, n, "B1", ["staging", "power sums W", "correlation",
                           "result staging", "store"], mhz)
@@ -219,10 +220,11 @@ def main(argv=None) -> int:
                         "detect_candidates_kernel")
     lib = build("detect_candidates", src, csrc)
     fn = lib.detect_candidates_launch
-    fn.argtypes = _build._SIGNATURES["detect_candidates_launch"]
+    fn.argtypes = _build._SIGNATURES["detect_candidates_launch"][0]
+    # M=48 runs the one-pass kernel, which needs no scratch
     run3(lib, lambda: fn(x.data_ptr(), rows, length, lag, span, win, 65536,
                          0.5, floors.data_ptr(), n_out, n_seg,
-                         *(t.data_ptr() for t in seg), stream))
+                         *(t.data_ptr() for t in seg), None, stream))
     report(lib, n, "B2", ["staging", "lag products", "window sums",
                           "metric", "NMS + segment parts", "segment picks"],
            mhz)
@@ -237,10 +239,10 @@ def main(argv=None) -> int:
                         "autocorr_metric_kernel", B3_MARKS)
     lib = build("autocorr_metric", src, csrc)
     fn = lib.autocorr_metric_launch
-    fn.argtypes = _build._SIGNATURES["autocorr_metric_launch"]
+    fn.argtypes = _build._SIGNATURES["autocorr_metric_launch"][0]
     run3(lib, lambda: fn(x.data_ptr(), rows, length, lag, span,
                          floors.data_ptr(), n_out, metric.data_ptr(),
-                         c.data_ptr(), stream))
+                         c.data_ptr(), None, stream))
     report(lib, n, "B3", B3_PHASES.get(n, []), mhz)
     return 0
 

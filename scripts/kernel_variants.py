@@ -10,7 +10,8 @@ within 1e-4 of max ``|c|``) and times it alone on the device
 (``torch.profiler`` over 100 launches) at the single-channel path's shape,
 8 rows of 100,366 samples at M=48 (seeded frames in noise).  ``--csrc``
 adds the B3 of another checkout's sources (one build, its own defaults),
-e.g. the parent's, to compare in the same run.  Prints one line per
+e.g. the parent's, to compare in the same run; its launch function must
+take this checkout's arguments.  Prints one line per
 variant: registers and spills (``ptxas``), error, device microseconds and
 the share of the 4.79 us bound by bytes.
 
@@ -61,7 +62,7 @@ def build(label: str, csrc: Path, defines) -> tuple[ctypes.CDLL, str]:
         r"Used \d+ registers|\d+ bytes spill stores", log))
     lib = ctypes.CDLL(str(so))
     lib.autocorr_metric_launch.argtypes = \
-        _build._SIGNATURES["autocorr_metric_launch"]
+        _build._SIGNATURES["autocorr_metric_launch"][0]
     return lib, regs
 
 
@@ -128,7 +129,7 @@ def main(argv=None) -> int:
         def launch():
             rc = lib.autocorr_metric_launch(
                 x.data_ptr(), ROWS, LENGTH, lag, span, floors.data_ptr(),
-                n_out, metric.data_ptr(), c.data_ptr(), stream)
+                n_out, metric.data_ptr(), c.data_ptr(), None, stream)
             if rc:
                 raise RuntimeError(f"{label}: CUDA error {rc}")
         launch()

@@ -3,7 +3,8 @@
 Every test here is marked ``gpu`` and skips without a CUDA device.  This
 file imports no JAX, so it also runs where JAX is not installed:
 
-    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py \
+        tests/test_torch_robustness.py
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Tolerances: B1 max abs difference <= 1e-4; B2 ``detected`` equal, ``vals``
@@ -23,6 +24,16 @@ persistent grid has blocks, and a loud burst followed by quiet noise,
 whose metric would carry a residue of a running sum).  B4/B5 vs
 :func:`kernels.autocorr_metric_prefix` (the same float32 prefix sums):
 metric <= 1e-5, ``c`` within 1e-5 of max ``|c|``.
+
+Every OFDM size the JAX package takes: B2 at M = 400 and 472 (the last
+its one-pass kernel takes) and 476-4,096, B1 at 1,028-4,096, B3 at 1,148 (the
+last its persistent kernel takes), 1,152-4,096 and at a span inside one
+chunk, B1 and B2 on 70,000 rows, all under the limits above; a
+launch-only sweep over every
+M that is a multiple of 4 from 8 to 4,096 (and 6,144, 8,192), each
+output finite and of its shape; ``sync_block`` at M = 512 (B2), 1,028
+(B1) and 1,152 (B3) decoding every frame with the CPU path's rows
+(t_start and flags exact, valid payloads exact, ``cfo`` within 1e-5).
 
 The flexframe path runs no kernel; its tests hold the card against the CPU:
 the front end (``_mf_and_detect``) with identical detections and detected
@@ -195,9 +206,11 @@ def _check_b2(x, M, T, k=8, exact_locs=False):
     assert torch.equal(det, vr > 0)
     assert bool(det.any())
     assert float((v - vr).abs().max()) <= 1e-4
+    det_h, loc_h, lr_h = det.cpu().numpy(), loc.cpu().numpy(), \
+        lr.cpu().numpy()
     for row in range(x.shape[0]):
-        a = np.sort(loc[row][det[row]].cpu().numpy())
-        b = np.sort(lr[row][det[row]].cpu().numpy())
+        a = np.sort(loc_h[row][det_h[row]])
+        b = np.sort(lr_h[row][det_h[row]])
         limit = 0 if exact_locs else 3
         assert np.abs(a.astype(np.int64) - b).max(initial=0) <= limit
     c_ref = torch.gather(c_full, -1, loc.to(torch.int64))[det]
@@ -260,21 +273,20 @@ def test_b3_tiling_matches_plain(cuda, M, length, rows, loud):
 
 @pytest.mark.gpu
 def test_b3_takes_windows_up_to_its_tile(cuda):
-    """span + lag = 2301 leaves a tile of 4 outputs (175 tiles a row, more
-    than the grid has blocks) and matches the plain version; one more, or
-    a span inside one chunk, is refused by the launch and raises."""
+    """span + lag = 2301 leaves the persistent kernel's tile 4 outputs;
+    one more, and a span inside one of its chunks, take the window sums of
+    any length: all three match the plain version."""
     rng = np.random.default_rng(3)
     x = torch.as_tensor((0.1 * (rng.normal(size=(3, 3000)) + 1j *
                                 rng.normal(size=(3, 3000)))
                          ).astype(np.complex64)).to(cuda)
-    m, c = kernels.detect_metric_onepass(x, 300, 2001)
-    torch.cuda.synchronize()
-    mr, cr = kernels.autocorr_metric(x, 300, 2001)
-    assert float((m - mr).abs().max()) <= 1e-4
-    assert float((c - cr).abs().max()) <= 1e-4 * float(cr.abs().max())
-    for lag, span in ((300, 2002), (2, 9)):
-        with pytest.raises(RuntimeError):
-            kernels.detect_metric_onepass(x, lag, span)
+    for lag, span in ((300, 2001), (300, 2002), (2, 9)):
+        m, c = kernels.detect_metric_onepass(x, lag, span)
+        torch.cuda.synchronize()
+        mr, cr = kernels.autocorr_metric(x, lag, span)
+        assert m.shape == mr.shape == (3, 3000 - span - lag + 1)
+        assert float((m - mr).abs().max()) <= 1e-4
+        assert float((c - cr).abs().max()) <= 1e-4 * float(cr.abs().max())
 
 
 @pytest.mark.gpu
@@ -302,6 +314,124 @@ def test_b2_plateau_keeps_the_lowest_offset(cuda):
     x[1, 2113:2113 + 2500] = 1.0             # across a tile edge
     x = torch.as_tensor(x).to(cuda)
     _check_b2(x, M, T=x.shape[-1] - 4 * M, k=80, exact_locs=True)
+
+
+# --- every OFDM size the JAX package takes (B1-B3 at large M) -------------
+
+def _large_rows(M, rows, seed, loud=False):
+    """``rows`` windows holding a frame at M (16-byte payload) with room
+    for its detect region: the frame's length plus 6 M samples."""
+    params = _params(M)
+    n = ofdm.frame_length(params, ofdm.default_props(), 16) + 6 * M
+    return torch.as_tensor(_rows(M, n, rows, np.random.default_rng(seed),
+                                 loud=loud))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [400, 472, 476, 512, 560, 1024, 2048, 4096])
+def test_b2_large_m_matches_plain(cuda, M):
+    """B2 past its one-block halo (M >= 476), where its three passes take
+    windows of any length; M = 512 also with a +40 dB burst; beside them
+    its one-pass kernel at 472, the largest M it takes, and 400, where the
+    last thread's window sums read chunk totals past the third plane."""
+    for loud in ((False, True) if M == 512 else (False,)):
+        x = _large_rows(M, 3, M, loud).to(cuda)
+        n_out = x.shape[-1] - (ofdm.NUM_S0 * M - M // 4) - M // 4 + 1
+        _check_b2(x, M, T=n_out - 2 * M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1028, 2048, 2052, 4096])
+def test_b1_large_m_matches_plain(cuda, M):
+    """B1 with more than 256 segments or 4,096 padded taps (1,028: 257
+    segments of 8; 2,052: 513 of 8; 4,096: 512 of 16), in passes over its
+    segments; 2,048 (256 of 16) is the control."""
+    _check_b1(_large_rows(M, 3, M).to(cuda), M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1148, 1152, 2048, 4096])
+def test_b3_large_m_matches_plain(cuda, M):
+    """B3 past its persistent kernel's tile (span + lag > 2,301), and at
+    1,148, the largest M that kernel takes."""
+    _check_b3(_large_rows(M, 3, M).to(cuda), M)
+
+
+@pytest.mark.gpu
+def test_b1_b2_take_70000_rows(cuda):
+    """More rows than a grid's y dimension holds (65,535): 70,000 short
+    rows at M=48, every seventh with a frame's S0 in its detect region."""
+    M, n = 48, 400
+    rng = np.random.default_rng(70000)
+    x = (0.02 * (rng.normal(size=(70000, n)) + 1j *
+                 rng.normal(size=(70000, n)))).astype(np.complex64)
+    f = ofdm.assemble_frame(
+        _params(M), ofdm.default_props(),
+        torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+        torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8))).numpy()
+    for r in range(0, 70000, 7):
+        pos = 60 + r % 90
+        x[r, pos:] += f[:n - pos]
+    x = torch.as_tensor(x).to(cuda)
+    n_out = n - (ofdm.NUM_S0 * M - M // 4) - M // 4 + 1
+    _check_b2(x, M, T=n_out - 2 * M, k=4)     # 5 segments a row
+    _check_b1(x, M)
+
+
+def _sweep_sizes():
+    return list(range(8, 4097, 4)) + [6144, 8192]
+
+
+@pytest.mark.gpu
+def test_every_ofdm_size_launches(cuda):
+    """Launch-only sweep over every M that is a multiple of 4 from 8 to
+    4,096, and 6,144 and 8,192: the kernel of each detect level that M
+    reaches (B1 at level 1, B2 at level 2 from M = 32, B3 at level 2 below
+    and on the legacy detector) returns finite output of its shape, on 2
+    rows of seeded noise of 4 M + 1,024 samples (a 1,024-sample block)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for M in _sweep_sizes():
+        n = 4 * M + 1024
+        x = torch.randn((2, n), dtype=torch.complex64, device=cuda,
+                        generator=gen)
+        lag, span = M // 4, ofdm.NUM_S0 * M - M // 4
+        tmpl = np.exp(2j * np.pi * np.arange(2 * M) / 4).astype(np.complex64)
+        n_metric = 1024 + 2 * M + 1
+        b1 = kernels.detect_metric_xcorr_onepass(
+            x, tmpl, ofdm_sync._xc_span(2 * M), n_metric)
+        m, c = kernels.detect_metric_onepass(x, lag, span)
+        outs = [(b1, (2, n_metric)), (m, (2, n - span - lag + 1)),
+                (c, (2, n - span - lag + 1))]
+        if M >= 32:
+            v, loc, ca = kernels.detect_candidates_onepass(
+                x, lag, span, M, 1024, 0.5, 8)
+            outs += [(v, (2, 8)), (loc, (2, 8)), (ca, (2, 8))]
+        torch.cuda.synchronize()
+        for out, shape in outs:
+            assert tuple(out.shape) == shape, (M, out.shape)
+            assert bool(torch.isfinite(out).all()), M
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,level,xcorr", [(512, 2, True), (1028, 1, True),
+                                           (1152, 1, False)])
+def test_sync_block_large_m_on_the_card(cuda, M, level, xcorr):
+    """``sync_block`` on the card at M = 512 (level 2: B2), 1,028 (level 1:
+    B1) and 1,152 (the legacy detector at level 1: B3) decodes every frame
+    payload-exact, with the rows of the port's CPU path on the same
+    samples."""
+    import torch_sync_streams as tss
+    stream, sent = tss.frame_stream(M, 2, M)
+    sync = ofdm_sync.make_sync(tss.params_at(M), block_size=8192,
+                               max_payload=64, max_frames=4,
+                               use_pallas=level, xcorr_detect=xcorr)
+    kernels.reset_launch_counts()
+    got = tss.sync_rows(sync, stream, cuda)
+    name = {2: "detect_candidates_onepass", 1: "detect_metric_xcorr_onepass"
+            if xcorr else "detect_metric_onepass"}[level]
+    assert kernels.launches[name] > 0
+    tss.assert_decodes_sent(got, sent)
+    tss.assert_same_rows(got, tss.sync_rows(sync, stream, "cpu"))
 
 
 # ---------------------------------------------------------------------------
