@@ -315,8 +315,8 @@ KERNELS = {
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 DEVICE_ITERS = 100             # launches per kernel-only device time
 DEVICE_TRACES = 5              # profiler windows tried per device time
-SPIN_CYCLES = 1_000_000        # the spin kernel opening each window
-PROFILER_EDGE_S = 0.05         # host idle at each edge of a profiler window
+SPIN_CYCLES = 1_000_000        # each spin kernel opening a window
+SPIN_OPEN = 16                 # spin kernels opening each profiler window
 # the single-channel path at the ofdmflexframe_tx/rx defaults
 SC_FRAMES, SC_PAYLOAD, SC_SEED = 40, 1200, 42
 SC_BLOCK, SC_BATCH, SC_MAX_PAYLOAD = 16384, 8, 2048
@@ -381,18 +381,27 @@ FID_SIGMAS = 3.0               # ... PER_J(s - 0.5), each widened so
 FID_LEVEL_SNRS = (7.0, 8.0)    # OFDM: bracket 10 % PER, levels 0, 1, 2
 FID_LEVEL_FLIPS = 2            # level 1's payload_valid flips vs level 0
 FID_SOFT_SNR = {"ofdm": 2.0, "flex": 0.0, "gmsk": -3.0}
+FID_INVALID_SNRS = (-2.0, -1.0)  # GMSK v27 hard: headers fail (fault C6)
 # every OFDM size the JAX package takes (phase 29): per M, the detect
 # config (xcorr_detect, use_pallas) whose kernel leaves its M=48 tiling
 # there, and the CUDA kernels a call of its wrapper launches at that M
 LM_CONFIGS = {512: (True, 2, "detect_candidates_onepass"),
               1028: (True, 1, "detect_metric_xcorr_onepass"),
               1152: (False, 1, "detect_metric_onepass")}
-LM_KERNELS = {"detect_metric_xcorr_onepass": ("xcorr_metric_kernel",),
+LM_KERNELS = {"detect_metric_xcorr_onepass": ("xcorr_fold_kernel",
+                                              "xcorr_fold_sum_kernel"),
               "detect_candidates_onepass": ("ws_lag_sums_kernel",
                                             "cand_nms_kernel",
                                             "cand_seg_kernel"),
-              "detect_metric_onepass": ("ws_lag_sums_kernel",
-                                        "autocorr_gate_kernel")}
+              "detect_metric_onepass": ("w3_totals_kernel",
+                                        "w3_metric_kernel")}
+# the sizes of phase 29's redesigned paths, timed on windows of the shape
+# of the single-channel path's first dispatch at each M: B1's period
+# fold, B3's window sums (and B3 at a span of at most 9, at M=48's shape)
+LM_FOLD_SIZES = (64, 256, 1024, 1028, 4096)
+LM_W3_SIZES = (1152, 2048, 4096)
+LM_W3_SHORT = (2, 9)           # (lag, span)
+LM_PLAIN_ITERS = 2             # plain-version calls timed at these sizes
 LM_FRAMES, LM_PAYLOAD, LM_MAX_PAYLOAD, LM_BLOCK = 4, 200, 256, 8192
 LM_SWEEP = tuple(range(8, 4097, 4)) + (6144, 8192)
 LM_SWEEP_BLOCK = 1024          # the sweep's rows: 4 M + this many samples
@@ -423,48 +432,60 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def open_window():
+    """Open a profiler window with ``SPIN_OPEN`` spin kernels
+    (``torch.cuda._sleep``, about 8 ms of device time in all), so that the
+    launches under test queue behind them.  The profiler can lose the
+    records of a window's first launches (on an H100 once phases 24-27
+    had run: one spin kernel's and the first call's in every window of the
+    process; with eight spin kernels, 121 of 176 spin records over 22
+    windows); those losses fall on these sacrificial kernels, whose
+    records are counted in ``PROFILER_SPINS`` and checked nowhere."""
+    for _ in range(SPIN_OPEN):
+        torch.cuda._sleep(SPIN_CYCLES)
+
+
+PROFILER_SPINS = {"windows": 0, "launched": 0, "seen": 0, "least": SPIN_OPEN,
+                  "retraced": 0}
+
+
 def kernel_device_us(fn, kernel, iters: int = DEVICE_ITERS) -> float:
     """Mean device microseconds a call of ``fn`` spends in the CUDA kernel
     named ``kernel`` (or, for a tuple of names, in those kernels, each
     launched once a call) over ``iters`` back-to-back calls
     (``torch.profiler``: the kernels' own time on the card, without the
     wrapper's other work or the host's launch gaps).  Two calls warm every
-    kernel up first, and each window opens with a spin kernel, so that
-    the timed launches queue behind it.  In about one window of a hundred
-    the profiler loses every record of the window's first millisecond or
-    so (the spin kernel's and those of the first calls;
-    ``scripts/profiler_edges.py`` counts it), so the host idles
-    ``PROFILER_EDGE_S`` at each edge of the window before and after any
-    launch.  A window that does not show every launch of every kernel is
-    traced again with twice the margin, at most ``DEVICE_TRACES``
-    times."""
+    kernel up first, and each window opens with ``open_window``'s spin
+    kernels.  Every launch of every kernel must be in the window; one that
+    is not is traced again, at most ``DEVICE_TRACES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     fn()
     torch.cuda.synchronize()
-    edge = PROFILER_EDGE_S
     for _ in range(DEVICE_TRACES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(edge)
-            torch.cuda._sleep(SPIN_CYCLES)
+            open_window()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(edge)
         ev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
         n = {k: sum(e.count for e in ev if k in e.key) for k in names}
-        if all(c == iters for c in n.values()):
-            return sum(getattr(e, "self_device_time_total", None) or
-                       e.self_cuda_time_total
-                       for k in names for e in ev if k in e.key) / iters
+        total = {k: sum(getattr(e, "self_device_time_total", None) or
+                        e.self_cuda_time_total for e in ev if k in e.key)
+                 for k in names}
         spin = sum(e.count for e in ev if "spin" in e.key)
-        print(f"profiler saw {n} launches of {iters} each and {spin} of 1 "
-              f"spin kernel with {edge:.2f} s margins: traced again",
-              flush=True)
-        edge *= 2
+        PROFILER_SPINS["windows"] += 1
+        PROFILER_SPINS["launched"] += SPIN_OPEN
+        PROFILER_SPINS["seen"] += spin
+        PROFILER_SPINS["least"] = min(PROFILER_SPINS["least"], spin)
+        if all(c == iters for c in n.values()):
+            return sum(total.values()) / iters
+        PROFILER_SPINS["retraced"] += 1
+        print(f"profiler saw {n} launches of {iters} each and {spin} of "
+              f"{SPIN_OPEN} spin kernels: traced again", flush=True)
     raise AssertionError(f"profiler saw {n} launches, expected {iters} "
                          f"of each")
 
@@ -476,17 +497,6 @@ def bound(nbytes: float, flops: float):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def template_period(tmpl) -> int:
-    """The smallest p < len(tmpl) with ``tmpl[i + p] == tmpl[i]``
-    everywhere (exactly), or 0.  The S0 template repeats with period M/4
-    (S0 sits on every 4th subcarrier)."""
-    t = np.asarray(tmpl)
-    for p in range(1, len(t)):
-        if np.array_equal(t[p:], t[:-p]):
-            return p
-    return 0
-
-
 def work(name, rows, length, **shape):
     """(bytes, float32 operations) of one call at these shapes: each input
     read once and each output written once; operations as the function
@@ -494,14 +504,18 @@ def work(name, rows, length, **shape):
     product of tap k and sample i depends on (i, (i - k) mod p) only, so
     each of the p residue classes of outputs takes one product sequence
     (6 a product) and its running span-window sums (4 a sample), over the
-    samples its outputs reach; where p divides the span, one p-tap
-    correlation z per sample (8 per complex tap) serves every segment,
-    which adds span/p values of z; the least of these and 8 per tap of
-    every segment (the direct form); then per segment |u|^2, the energy
-    scale, the divide, the floor gate and the sum, and per sample |x|^2, a
-    running span-window power sum and the mean.  B2/B3: the lag product,
+    samples its outputs reach; where the span divides p, the span-window
+    sums are sums of non-overlapping blocks of those products (2 a
+    product in place of 4 a sample, so 8 a product); where p divides the
+    span, one p-tap correlation z per sample (8 per complex tap) serves
+    every segment, which adds span/p values of z; the least of these and
+    8 per tap of every segment (the direct form); then per segment |u|^2,
+    the energy scale, the divide, the floor gate and the sum, and per
+    sample |x|^2, a running span-window power sum and the mean.  B2/B3:
+    the lag product,
     power and three window sums as running sums, the metric and, for B2,
     the NMS max; B4/B5: four window differences and the metric."""
+    from liquid_usrp_tpu_torch.ops.kernels import template_period
     x = rows * length * 8
     if name == "detect_metric_xcorr_onepass":
         n, tmpl, span = shape["n_metric"], shape["tmpl"], shape["span"]
@@ -509,7 +523,8 @@ def work(name, rows, length, **shape):
         n_seg = n_tap // span
         corr = 8 * n_tap * n
         if p:
-            corr = min(corr, 10 * (p * n + min(p, n) * (n_tap - p)))
+            prods = p * n + min(p, n) * (n_tap - p)
+            corr = min(corr, (8 if p % span == 0 else 10) * prods)
         if p and span % p == 0:
             corr = min(corr, n * (8 * p + n_seg * 2 * (span // p - 1)))
         return x + rows * n * 4, rows * (corr + n * (7 * n_seg + 6))
@@ -723,14 +738,15 @@ def check_kernels(sync, rx, blocks):
 
 
 def timed(name, fn, plain, args, err, nbytes_flops, shape, label=None,
-          kernel=None):
+          kernel=None, plain_iters=10):
     """The wrapper ``fn(*args)``'s and the plain version's times (CUDA
-    events), the kernel's device time alone (profiler) and its bound: one
-    entry of the kernels line.  ``label`` names the printed line (default
-    ``name``); ``kernel``: the CUDA kernel name(s) a call launches
-    (default the wrapper's one-pass kernel)."""
+    events; the plain version over ``plain_iters`` calls), the kernel's
+    device time alone (profiler) and its bound: one entry of the kernels
+    line.  ``label`` names the printed line (default ``name``);
+    ``kernel``: the CUDA kernel name(s) a call launches (default the
+    wrapper's one-pass kernel)."""
     ms = cuda_ms(lambda: fn(*args), 50)
-    plain_ms = cuda_ms(lambda: plain(*args), 10)
+    plain_ms = cuda_ms(lambda: plain(*args), plain_iters)
     dev_us = kernel_device_us(lambda: fn(*args),
                               kernel or KERNELS[name]["kernel"])
     bound_ms, bound_by = bound(*nbytes_flops)
@@ -837,14 +853,15 @@ def check_class_entry(dev):
           f"payload-exact", flush=True)
 
 
-def metric_vs_plain(name, plain, limit, exts, m_sub, label=None):
+def metric_vs_plain(name, plain, limit, exts, m_sub, label=None, lag=None,
+                    span=None):
     """Kernel ``name`` (B3, B4 or B5) vs its ``plain`` version on the
-    extended windows ``exts`` of M = ``m_sub``: metric max abs difference
-    and ``c`` relative to max ``|c|`` within ``limit``.  Returns the
-    metric's difference."""
+    extended windows ``exts`` of M = ``m_sub`` (or at ``lag`` and
+    ``span``): metric max abs difference and ``c`` relative to max ``|c|``
+    within ``limit``.  Returns the metric's difference."""
     from liquid_usrp_tpu_torch.ops import kernels
-    lag = m_sub // 4
-    span = 2 * m_sub - lag
+    lag = m_sub // 4 if lag is None else lag
+    span = 2 * m_sub - lag if span is None else span
     m, c = getattr(kernels, name)(exts, lag, span)
     torch.cuda.synchronize()
     mr, cr = plain(exts, lag, span)
@@ -1666,10 +1683,10 @@ def viterbi_ms(sync, stream, dev, label):
     """The Viterbi's ms per dispatch, inside the timed ``--conv`` dispatch
     (blocks ``GM_DISPATCH * GM_BATCH``..): the host-clock time of its
     second FEC stage (``_fec_batch`` in ``fec0``, v27 over the dispatch's
-    header-valid v27 rows; the first stage, ``fec1``, is ``none``), with
-    a sync before and after it, mean over ``GM_TIMED_RUNS`` dispatches
-    after a warm-up one.  The stage is timed by wrapping
-    ``payload._fec_batch`` for these dispatches only."""
+    detected v27 rows, header-valid or not; the first stage, ``fec1``, is
+    ``none``), with a sync before and after it, mean over
+    ``GM_TIMED_RUNS`` dispatches after a warm-up one.  The stage is timed
+    by wrapping ``payload._fec_batch`` for these dispatches only."""
     from liquid_usrp_tpu_torch.framing import gmskframe as gf
     from liquid_usrp_tpu_torch.framing import payload as payload_codec
     from liquid_usrp_tpu_torch.ops import fec
@@ -1706,7 +1723,7 @@ def viterbi_ms(sync, stream, dev, label):
                                      sync.enc_max) * 8 + 6
     print(f"Viterbi in the timed --conv dispatch (blocks "
           f"{GM_DISPATCH * GM_BATCH}.., fec0 stage: v27 over its {n_rows} "
-          f"header-valid rows x {steps} trellis steps): "
+          f"detected rows x {steps} trellis steps): "
           f"{' / '.join(f'{t:.2f}' for t, _, _ in f0)} ms, mean {ms:.2f} ms "
           f"per dispatch, {ms * 1e3 / steps:.2f} us per step on {label}",
           flush=True)
@@ -1819,7 +1836,8 @@ def soft_payload_vs_cpu(what, call):
     args, kw = call
     got = [v.cpu() for v in pc.decode_payload_batch_soft(*args, **kw)]
     cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
-    want = pc.decode_payload_batch_soft(*cpu, **kw)
+    want = pc.decode_payload_batch_soft(*cpu, **{
+        k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
     hv = cpu[9]
     if not (torch.equal(got[1], want[1]) and
             torch.equal(got[0][hv], want[0][hv])):
@@ -3219,11 +3237,12 @@ def fid_point(bs, cfg, stream, noisy, snr, dev):
 
 def fid_line(what, row, jax_row, sec):
     jper = "none" if jax_row is None else f"{jax_row['packet_error_rate']:.3f}"
+    jber = "none" if jax_row is None else f"{jax_row['payload_ber']:.3e}"
     return (f"{what} at {row['snr_db']:5.1f} dB: {row['frames_sent']} "
             f"frames, {row['frames_detected']} detected, "
             f"{row['header_errors']} header errors, PER "
             f"{row['packet_error_rate']:.3f} (JAX {jper}), BER "
-            f"{row['payload_ber']:.3e}, {sec:.2f} s")
+            f"{row['payload_ber']:.3e} (JAX {jber}), {sec:.2f} s")
 
 
 def fid_jax_row(rows, snr):
@@ -3242,9 +3261,9 @@ def fid_profiled(bs, cfg, stream, noisy, snr, dev, kernel):
     reported beside the dispatches (the wrappers' counts are the check: a
     profiler window over a whole point, opened at the first dispatch, lost
     a dispatch's record in most runs made after phases 24-27: the
-    profiler can lose the records of a window's first millisecond, so the
-    window idles ``PROFILER_EDGE_S`` at each edge, as ``kernel_device_us``
-    does).  Returns the point's (row, score,
+    profiler can lose the records of a window's first launches, so the
+    window opens with ``open_window``'s spin kernels, as
+    ``kernel_device_us``'s do).  Returns the point's (row, score,
     seconds, dispatches, launches), the kernel's device microseconds at
     these shapes, its error against the plain version and the profiler's
     (records, dispatches) over the path."""
@@ -3295,11 +3314,10 @@ def fid_profiled(bs, cfg, stream, noisy, snr, dev, kernel):
     us = kernel_device_us(lambda: fn(*args), KERNELS[kernel]["kernel"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILER_EDGE_S)
+        open_window()
         for _ in bs.dispatches(cfg, noisy):
             pass
         torch.cuda.synchronize()
-        time.sleep(PROFILER_EDGE_S)
     seen = sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and KERNELS[kernel]["kernel"] in e.key)
@@ -3428,6 +3446,19 @@ def run_fidelity(dev, label):
                                  f"{out['soft']['packet_error_rate']} not "
                                  f"below hard "
                                  f"{out['hard']['packet_error_rate']}")
+    # fault C6: the payload bits of every matched detection count, header
+    # valid or not, so where headers fail the BER holds the conv/RS bytes
+    # of header-invalid rows (decoded as JAX decodes them)
+    rows = jax_curve("gmsk_v27_hard")
+    hard = bs.make_config("gmsk", FID_PAYLOAD, "v27", "none")
+    stream = bs.build_stream(hard, FID_FRAMES, 0, dev)
+    for snr in FID_INVALID_SNRS:
+        row, _, sec, n_disp, launches = fid_point(
+            bs, hard, stream, bs.add_noise(stream, snr), snr, dev)
+        count(launches)
+        print(fid_line("fidelity gmsk v27 hard, header-invalid rows decoded",
+                       row, fid_jax_row(rows, snr), sec)
+              + f", {n_disp} dispatches", flush=True)
     print(f"fidelity on {label}: every point within rule (a); the sweep "
           f"launched B1 {sweep[b1]} and B2 {sweep[b2]} times, B3-B5 0; the "
           f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3469,6 +3500,69 @@ def lm_kernels(m, exts, params):
         nf = work(name, *shape, span=L, lag=lag)
     return timed(name, getattr(kernels, name), plain, args, errs[name], nf,
                  shape, label=f"{name} at M={m}", kernel=LM_KERNELS[name])
+
+
+def lm_redesign(dev):
+    """B1's period fold at ``LM_FOLD_SIZES`` and B3's window sums at
+    ``LM_W3_SIZES`` and ``LM_W3_SHORT``, on windows of the single-channel
+    path's first dispatch at each M (its shape, ``[SC_BATCH, overlap +
+    SC_BLOCK]``): seeded 0.01-rms noise with the S0 template at an offset
+    of each row that the outputs reach, and in row 0 a +40 dB copy of it
+    before quiet noise.  Each against its plain version (the limits of
+    phase 3), the fold path taken and counted, and timed (device time of
+    the path's kernels, bound, share).  Returns {label: timed entry}."""
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    from liquid_usrp_tpu_torch.ops import kernels
+    out = {}
+    gen = np.random.default_rng(2912)
+
+    def windows(m):
+        params = ofdm.make_ofdm_params(m, m // 8, TAPER)
+        tmpl = np.tile(params.s0_time, 2).astype(np.complex64)
+        sync = ofdm_sync.make_sync(params, block_size=SC_BLOCK,
+                                   max_payload=SC_MAX_PAYLOAD)
+        shape = (SC_BATCH, sync.overlap + SC_BLOCK)
+        x = (0.01 * (gen.normal(size=shape) + 1j * gen.normal(size=shape))
+             ).astype(np.complex64)
+        x[0, 100:100 + len(tmpl)] += 100.0 * tmpl
+        for r in range(SC_BATCH):
+            pos = 3 * len(tmpl) + 611 * r
+            x[r, pos:pos + len(tmpl)] += tmpl
+        return params, tmpl, torch.as_tensor(x, device=dev)
+
+    name = "detect_metric_xcorr_onepass"
+    for m in LM_FOLD_SIZES:
+        params, tmpl, exts = windows(m)
+        span = ofdm_sync._xc_span(len(tmpl))
+        args = (exts, tmpl, span, SC_BLOCK + 2 * m + 1)
+        shape = tuple(exts.shape)
+        kernels.reset_launch_counts()
+        err = b1_vs_plain(args, f"B1 fold at M={m} {shape}")
+        if kernels.xcorr_paths["fold"] != 1:
+            raise AssertionError(f"B1 at M={m} took {kernels.xcorr_paths}")
+        out[f"B1 M={m}"] = timed(
+            name, kernels.detect_metric_xcorr_onepass,
+            kernels.detect_metric_xcorr_plain, args, err,
+            work(name, *shape, n_metric=args[3], tmpl=tmpl, span=span),
+            shape, label=f"B1 period fold at M={m}",
+            kernel=LM_KERNELS[name], plain_iters=LM_PLAIN_ITERS)
+    name = "detect_metric_onepass"
+    geoms = [(m, m // 4, 2 * m - m // 4) for m in LM_W3_SIZES]
+    geoms.append((M, *LM_W3_SHORT))
+    for m, lag, span in geoms:
+        exts = windows(m)[2]
+        shape = tuple(exts.shape)
+        what = f"M={m}" if m != M else f"lag={lag} span={span}"
+        err = metric_vs_plain(name, kernels.autocorr_metric, 1e-4, exts, m,
+                              f"B3 window sums at {what} {shape}", lag=lag,
+                              span=span)
+        kern = LM_KERNELS[name] if span > 9 else ("w3_direct_kernel",)
+        out[f"B3 {what}"] = timed(
+            name, kernels.detect_metric_onepass, kernels.autocorr_metric,
+            (exts, lag, span), err, work(name, *shape, span=span, lag=lag),
+            shape, label=f"B3 window sums at {what}", kernel=kern,
+            plain_iters=LM_PLAIN_ITERS)
+    return out
 
 
 def lm_sweep(dev):
@@ -3682,6 +3776,7 @@ def run_large_m(dev, label):
             times[m] = lm_kernels(m, sc_windows(params, padded, dev),
                                   params)
             runs.append(lm_decode(m, stream, sent, dev))
+        sizes = lm_redesign(dev)
         lm_sweep(dev)
         runs += lm_robustness(dev)
         kernels.reset_launch_counts()
@@ -3714,6 +3809,12 @@ def run_large_m(dev, label):
               for m, t in times.items()
               for t_name in [LM_CONFIGS[m][2]]) +
           f"; phase 29 {time.perf_counter() - t0:.1f} s", flush=True)
+    print("redesigned paths on " + label + ", kernel device time (us), "
+          "bound (us, by), share: " + "; ".join(
+              f"{what} {t['kernel_ms'] * 1e3:.2f}, "
+              f"{t['bound_ms'] * 1e3:.2f} ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['kernel_ms']:.1%}"
+              for what, t in sizes.items()), flush=True)
     return runs, times
 
 
@@ -3894,6 +3995,11 @@ def main() -> int:
             raise AssertionError(f"{name}, on no path, was launched "
                                  f"{launches[name]} times by the paths")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"profiler windows: {PROFILER_SPINS['windows']}, each opened by "
+          f"{SPIN_OPEN} spin kernels, {PROFILER_SPINS['seen']} of their "
+          f"{PROFILER_SPINS['launched']} records seen (at least "
+          f"{PROFILER_SPINS['least']} in a window), "
+          f"{PROFILER_SPINS['retraced']} traced again", flush=True)
 
     print("kernel device time (us), bound (us, by), share: " + "; ".join(
         f"{name} {t['kernel_ms'] * 1e3:.2f}, {t['bound_ms'] * 1e3:.2f} "

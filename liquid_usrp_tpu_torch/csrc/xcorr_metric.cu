@@ -10,9 +10,10 @@
 //   metric[n] = mean_s r_s[n]
 //
 // What bounds the function on the card: device-memory traffic, 8 B read
-// and 4 B written per output.  The S0 template repeats with period M/4, so
-// one M/4-tap correlation per sample could serve every segment; this
-// kernel does not fold the period yet.  It runs the direct form, n_tmpl
+// and 4 B written per output.  The S0 template repeats with period M/4;
+// csrc/xcorr_fold.cu folds that period for every other periodic template,
+// and this kernel runs M = 48's template and any template with no period
+// (ops/kernels.py::xcorr_path chooses).  It runs the direct form, n_tmpl
 // complex multiply-adds per output (96 at M=48, 4 FMAs each), and the
 // design makes that loop FMA-bound:
 //

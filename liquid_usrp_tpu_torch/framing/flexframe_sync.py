@@ -346,10 +346,12 @@ def _mf_and_detect(sync: FlexSync, ext: torch.Tensor):
 
 
 def _gated_decode(sync: FlexSync, mf, metric, gate: bool, row_of, locs,
-                  c1_at, c2_at):
+                  c1_at, c2_at, rows=None):
     """Batched candidate decode of flat candidates ``locs [R]`` (window
     ``row_of[r]`` of ``mf``/``metric``); the 12-tuple of per-candidate
-    results, zeros when ``gate`` is False (nothing detected)."""
+    results, zeros when ``gate`` is False (nothing detected).  ``rows``
+    (bool ``[R]``): the candidates whose conv/RS payload decodes (default
+    all)."""
     R = locs.shape[0]
     dev = mf.device
     if not gate:
@@ -365,7 +367,7 @@ def _gated_decode(sync: FlexSync, mf, metric, gate: bool, row_of, locs,
                  else payload_codec.decode_payload_batch)
     payload, pvalid = decode_fn(
         sync.enc_max, sync.dec_max, sync.max_payload, points, mod, f0, f1,
-        check, plen, hvalid, sync.fecs)
+        check, plen, hvalid, sync.fecs, rows=rows)
     # frame EVM = header + payload symbols (framesyncstats)
     used = payload_codec.payload_points_used(
         sync.fecs, sync.dec_max, sync.enc_max, plen, mod, f0, f1, check)
@@ -437,7 +439,8 @@ def flex_sync_blocks_batched(sync: FlexSync, state: FlexSyncState,
     locs_f = locs.reshape(-1)
     decoded = _gated_decode(sync, mf, metric, bool(detected.any()), row_of,
                             locs_f, _row_gather(c1, row_of, locs_f),
-                            _row_gather(c2, row_of, locs_f))
+                            _row_gather(c2, row_of, locs_f),
+                            detected.reshape(-1))
     t_base = state.base + (torch.arange(n_blocks, dtype=torch.int32,
                                         device=dev) * bs)[:, None]
     res = _results(detected, locs, t_base, decoded, (n_blocks, K))

@@ -490,10 +490,11 @@ def _decode_candidates(sync: GmskSync, z, metric, ext, row_of, n0):
 
 
 def _gated_decode(sync: GmskSync, z, metric, ext, gate: bool, row_of,
-                  locs):
+                  locs, rows=None):
     """Batched candidate decode of flat candidates ``locs [R]`` (window
     ``row_of[r]``); the 12-tuple of per-candidate results, zeros when
-    ``gate`` is False (nothing detected)."""
+    ``gate`` is False (nothing detected).  ``rows`` (bool ``[R]``): the
+    candidates whose conv/RS payload decodes (default all)."""
     R = locs.shape[0]
     dev = z.device
     if not gate:
@@ -513,7 +514,7 @@ def _gated_decode(sync: GmskSync, z, metric, ext, gate: bool, row_of,
                  else payload_codec.decode_payload_batch)
     payload, pvalid = decode_fn(
         sync.enc_max, sync.dec_max, sync.max_payload, ppts, mod_bpsk, f0, f1,
-        check, plen, hvalid, sync.fecs)
+        check, plen, hvalid, sync.fecs, rows=rows)
     return (user, payload, plen, mod_f, f0, f1, check, hvalid, pvalid, rssi,
             evm, cfo)
 
@@ -556,7 +557,7 @@ def gmsk_sync_blocks_batched(sync: GmskSync, state: GmskSyncState,
     z, metric, detected, locs = _front_end(sync, exts)
     row_of = torch.arange(n_blocks, device=dev).repeat_interleave(K)
     decoded = _gated_decode(sync, z, metric, exts, bool(detected.any()),
-                            row_of, locs.reshape(-1))
+                            row_of, locs.reshape(-1), detected.reshape(-1))
     t_base = state.base + (torch.arange(n_blocks, dtype=torch.int32,
                                         device=dev) * bs)[:, None]
     res = _results(detected, locs, t_base, decoded, (n_blocks, K))

@@ -528,11 +528,13 @@ def _decode_window(sync: OfdmSync, tables: SyncTables, wraw: torch.Tensor,
 
 def _gated_decode(sync: OfdmSync, tables: SyncTables, source: torch.Tensor,
                   gate: bool, locs: torch.Tensor, c_at: torch.Tensor,
-                  row_of: torch.Tensor):
+                  row_of: torch.Tensor, rows: torch.Tensor = None):
     """Batched candidate decode against windows ``source [rows, L]``:
     candidate ``r`` reads the window at ``locs[r]`` of row ``row_of[r]``.
     Returns the 12-tuple of per-candidate results, zeros when ``gate`` is
-    False (nothing detected: the decode is skipped)."""
+    False (nothing detected: the decode is skipped).  ``rows`` (bool
+    ``[R]``): the candidates whose conv/RS payload decodes (default
+    all)."""
     R = locs.shape[0]
     dev = source.device
     if not gate:
@@ -548,7 +550,7 @@ def _gated_decode(sync: OfdmSync, tables: SyncTables, source: torch.Tensor,
                  else payload_codec.decode_payload_batch)
     payload, pvalid = decode_fn(
         sync.enc_max, sync.dec_max, sync.max_payload, points, mod, f0, f1,
-        check, plen, hvalid, sync.fecs)
+        check, plen, hvalid, sync.fecs, rows=rows)
     used = payload_codec.payload_points_used(
         sync.fecs, sync.dec_max, sync.enc_max, plen, mod, f0, f1, check)
     evm = payload_codec.frame_evm_db(
@@ -594,7 +596,8 @@ def sync_block(sync: OfdmSync, state: OfdmSyncState, block: torch.Tensor,
     K = sync.max_frames
     row_of = torch.zeros(K, dtype=torch.int64, device=block.device)
     decoded = _gated_decode(sync, tables, ext, bool(detected.any()),
-                            locs.reshape(-1), c_at.reshape(-1), row_of)
+                            locs.reshape(-1), c_at.reshape(-1), row_of,
+                            detected.reshape(-1))
     res = _results(detected, locs, state.base, decoded, (K,))
     new_state = OfdmSyncState(tail=ext[0, ext.shape[-1] - sync.overlap:],
                               base=state.base + sync.block_size)
@@ -661,7 +664,8 @@ def sync_channels_batched(sync: OfdmSync, states: OfdmSyncState,
     row_of = torch.arange(N * n_blocks, device=chans.device
                           ).repeat_interleave(K)
     decoded = _gated_decode(sync, tables, exts, bool(detected.any()),
-                            locs.reshape(-1), c_at.reshape(-1), row_of)
+                            locs.reshape(-1), c_at.reshape(-1), row_of,
+                            detected.reshape(-1))
     base_t = states.base[:, None, None] + \
         (torch.arange(n_blocks, device=chans.device, dtype=torch.int32)
          * bs)[None, :, None]

@@ -15,9 +15,12 @@ Exactness rules carried over from the JAX code:
   the port's gathers clamp the same way.
 
 The convolutional and RS schemes (``PAYLOAD_FECS_FULL``) decode in the
-batched path only for the rows whose header is valid (see
-:func:`_fec_batch`).  The soft-decision path (:func:`generic_demod_soft`,
-:func:`decode_header_soft`, :func:`decode_payload_batch_soft`) feeds
+batched path only the rows that carry them, each such row whether its
+header is valid or not, so every row's bytes equal JAX's; a receiver
+narrows that to its detected candidates, whose bytes are the ones read
+(see :func:`_fec_batch`).  The soft-decision path
+(:func:`generic_demod_soft`, :func:`decode_header_soft`,
+:func:`decode_payload_batch_soft`) feeds
 max-log bit LLRs to the exact-ML Golay header decoder and to the soft
 Viterbi of the convolutional payload codes.
 """
@@ -526,10 +529,14 @@ def _fec_batch(scheme_ids: torch.Tensor, bufs: torch.Tensor, out_bytes: int,
 
     A block-code scheme decodes the whole batch once and a masked select
     picks each row's result, as JAX.  A convolutional or RS scheme decodes
-    only the rows that carry it (one host read of the ids) and leaves the
-    others; ``rows`` (bool ``[K]``, default all) narrows that to the rows
-    whose result is used, and the conv/RS bytes of the other rows are then
-    zeros where JAX decodes them anyway.
+    only the rows that carry it (one host read of the ids a stage), every
+    such row, header-valid or not: JAX decodes every row with every scheme
+    and picks by id, so each row's bytes equal JAX's; a scheme no row
+    carries costs nothing.  ``rows`` (bool ``[K]``, default all) narrows
+    that to the rows whose bytes are read (a receiver's detected
+    candidates: the ids of an empty slot are noise, mostly clipped to the
+    last scheme, RS8); the conv/RS bytes of the other rows are then zeros
+    where JAX decodes them anyway.
 
     With ``llrs`` (float ``[K, >= in*8]``, descrambled channel LLRs of
     ``bufs``) the convolutional schemes decode soft.  ``llr_ok`` (bool
@@ -570,18 +577,20 @@ def _fec_batch(scheme_ids: torch.Tensor, bufs: torch.Tensor, out_bytes: int,
 
 def decode_payload_batch(sync_enc_max: int, dec_max: int, max_payload: int,
                          points: torch.Tensor, mod, f0, f1, check, plen,
-                         hvalid, fecs=PAYLOAD_FECS):
+                         hvalid, fecs=PAYLOAD_FECS, rows=None):
     """Batched payload decode for K candidates: ``points [K, n_pts]``,
-    per-row props -> (payload [K, max_payload] uint8, payload_valid [K])."""
+    per-row props -> (payload [K, max_payload] uint8, payload_valid [K]).
+    ``rows`` (bool ``[K]``): decode the conv/RS schemes only there, as
+    :func:`_fec_batch` says."""
     return _decode_payload_rows(sync_enc_max, dec_max, max_payload, points,
                                 mod, f0, f1, check, plen, hvalid, fecs,
-                                soft=False)
+                                rows, soft=False)
 
 
 def decode_payload_batch_soft(sync_enc_max: int, dec_max: int,
                               max_payload: int, points: torch.Tensor, mod,
                               f0, f1, check, plen, hvalid,
-                              fecs=PAYLOAD_FECS):
+                              fecs=PAYLOAD_FECS, rows=None):
     """:func:`decode_payload_batch` with soft LLRs into the convolutional
     branches: the points are demapped once to LLRs
     (:func:`generic_demod_soft`), whose signs give the hard bytes for the
@@ -594,11 +603,12 @@ def decode_payload_batch_soft(sync_enc_max: int, dec_max: int,
     the scheme ids of each FEC stage."""
     return _decode_payload_rows(sync_enc_max, dec_max, max_payload, points,
                                 mod, f0, f1, check, plen, hvalid, fecs,
-                                soft=True)
+                                rows, soft=True)
 
 
 def _decode_payload_rows(sync_enc_max, dec_max, max_payload, points, mod,
-                         f0, f1, check, plen, hvalid, fecs, soft: bool):
+                         f0, f1, check, plen, hvalid, fecs, rows,
+                         soft: bool):
     bps_all = on(_BPS, points.device)[mod.to(torch.int64)]
     # host-side table-size gate (a device sync): 64 entries cover every
     # scheme with bps <= 6; entries past 2^bps are padding and never win
@@ -612,8 +622,8 @@ def _decode_payload_rows(sync_enc_max, dec_max, max_payload, points, mod,
     else:
         pbits, _ = generic_demod_bits(points, mod, sync_enc_max * 8, n_tab)
     enc = scramble(pack_bits(pbits), salt=2)
-    mid = _fec_batch(f1, enc, sync_enc_max, fecs, rows=hvalid, llrs=llr_desc)
-    dec = _fec_batch(f0, mid, dec_max, fecs, rows=hvalid, llrs=llr_desc,
+    mid = _fec_batch(f1, enc, sync_enc_max, fecs, rows=rows, llrs=llr_desc)
+    dec = _fec_batch(f0, mid, dec_max, fecs, rows=rows, llrs=llr_desc,
                      llr_ok=llr_ok)
     pvalid = hvalid & crc_check_dynamic(check, dec, plen)
     keep = torch.arange(max_payload, device=points.device)[None, :] < \

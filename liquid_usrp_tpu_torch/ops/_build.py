@@ -35,6 +35,10 @@ _SIGNATURES = {
     # floors, out, stream
     "xcorr_metric_launch": ([_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
                              _I, _VP, _VP, _VP], _I),
+    # ext, rows, len, span, n_seg, P, J, g, n_metric, floors, taps, meta,
+    # part, out, stream
+    "xcorr_fold_launch": ([_VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP,
+                           _VP, _VP, _VP, _VP], _I),
     # ext, rows, len, lag, span, win, T, thr, floors, n_out, n_seg,
     # segval, segarg, segcre, segcim, scratch, stream
     "detect_candidates_launch": ([_VP, _I, _I, _I, _I, _I, _I, _F, _VP, _I,

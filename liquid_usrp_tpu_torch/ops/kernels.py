@@ -3,8 +3,10 @@
 Port of the five kernels of ``liquid_usrp_tpu/ops/pallas_kernels.py``:
 
 * **B1** :func:`detect_metric_xcorr_onepass` — the segmented-coherent S0
-  cross-correlation metric (``OfdmSync.use_pallas == 1``), CUDA source
-  ``csrc/xcorr_metric.cu``;
+  cross-correlation metric (``OfdmSync.use_pallas == 1``), CUDA sources
+  ``csrc/xcorr_metric.cu`` (M = 48's template, and any template with no
+  period) and ``csrc/xcorr_fold.cu`` (a periodic template, every other
+  M; :func:`xcorr_path` chooses);
 * **B2** :func:`detect_candidates_onepass` — the fused Schmidl-Cox metric,
   NMS and per-segment reduction, then a top-k over the segment maxima
   (``use_pallas == 2``), CUDA source ``csrc/detect_candidates.cu``;
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -37,6 +40,7 @@ import torch
 from . import corr
 
 __all__ = ["detect_metric_xcorr_onepass", "detect_metric_xcorr_plain",
+           "xcorr_path", "template_period", "xcorr_paths",
            "detect_candidates_onepass", "detect_candidates_plain",
            "detect_metric_onepass", "detect_metric_fused_2d",
            "detect_metric_fused", "autocorr_metric", "autocorr_metric_prefix",
@@ -51,9 +55,14 @@ launches = {"detect_metric_xcorr_onepass": 0,
             "detect_metric_fused": 0}
 
 
+# B1's launches by path (:func:`xcorr_path`), beside ``launches``
+xcorr_paths = {"const": 0, "fold": 0, "direct": 0}
+
+
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, xcorr_paths):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_rows(ext: torch.Tensor) -> torch.Tensor:
@@ -171,6 +180,83 @@ def _xcorr_device_consts(tmpl_bytes: bytes, span: int, device: str):
             torch.tensor(ea, device=device))
 
 
+def template_period(tmpl: np.ndarray) -> int:
+    """The smallest p < len(tmpl) with ``tmpl[i + p] == tmpl[i]``
+    everywhere (exactly), or 0.  The S0 template repeats with period M/4
+    (S0 sits on every 4th subcarrier)."""
+    t = np.asarray(tmpl)
+    for p in np.nonzero(t[1:] == t[0])[0] + 1:
+        if np.array_equal(t[p:], t[:-p]):
+            return int(p)
+    return 0
+
+
+XF_JMAX = 16            # csrc/xcorr_fold.cu: partial sums an output
+XF_SPAN_MAX = 24        # ... and its largest span
+
+
+@functools.lru_cache(maxsize=16)
+def _fold_geometry(tmpl_bytes: bytes, span: int):
+    """The period-fold path's geometry of a template, or ``None`` where it
+    has no period, a span the path does not take, or windows it cannot
+    fold: ``(P, J, g, taps, meta)``.  P, a multiple of the period p, is
+    each lane's walk (p unless that gives more than ``XF_JMAX`` partial
+    sums an output); output n reads segment s from lane n + j P, j = s
+    span // P < J, at window start t = s span - j P, whose offset t mod
+    span is (-j P) mod span: a multiple of g = gcd(P, span).  The kernel
+    sums a lane's windows per offset, so every window at one offset must
+    serve the same partials, or none (true of every S0 template); ``taps``
+    [P + 2 span] complex64, tap t = conj(tmpl[t mod p]) up to P + span -
+    1, zeros after; ``meta`` [P + span, 2] float32: the segment energy of
+    the window at t and 1 where it serves a segment, else 0 (so at every
+    t >= P)."""
+    tmpl = np.frombuffer(tmpl_bytes, np.complex64)
+    n_tmpl = len(tmpl)
+    p = template_period(tmpl)
+    if not p or span > XF_SPAN_MAX:
+        return None
+    P = p
+    while (n_tmpl - span) // P + 1 > XF_JMAX:
+        P += p
+    J = (n_tmpl - span) // P + 1
+    ea = _xcorr_consts(tmpl_bytes, span)[2]
+    taps = np.zeros(P + 2 * span, np.complex64)
+    taps[:P + span - 1] = np.conj(tmpl[np.arange(P + span - 1) % p])
+    meta = np.zeros((P + span, 2), np.float32)
+    served = {}
+    for t in range(P):
+        js = tuple(j for j in range(J)
+                   if (t + j * P) % span == 0 and t + j * P <= n_tmpl - span)
+        if js:
+            segs = [(t + j * P) // span for j in js]
+            if len(set(ea[segs].tolist())) != 1 or \
+                    served.setdefault(t % span, js) != js:
+                return None
+            meta[t] = ea[segs[0]], 1.0
+    return P, J, math.gcd(P, span), taps, meta
+
+
+def xcorr_path(tmpl: np.ndarray, span: int) -> str:
+    """B1's kernel for a template: ``"const"`` for M = 48's geometry
+    (96 taps, span 24: ``csrc/xcorr_metric.cu``'s ``__constant__``
+    instance), ``"fold"`` for any other template with a period
+    (``csrc/xcorr_fold.cu``), else ``"direct"`` (the direct-form generic
+    instance of ``csrc/xcorr_metric.cu``)."""
+    tmpl = np.ascontiguousarray(tmpl, np.complex64)
+    if (len(tmpl), span) == _XC_CONST_GEOMETRY:
+        return "const"
+    return "direct" if _fold_geometry(tmpl.tobytes(), span) is None \
+        else "fold"
+
+
+@functools.lru_cache(maxsize=16)
+def _fold_device_consts(tmpl_bytes: bytes, span: int, device: str):
+    """The fold geometry's taps and metadata on ``device``."""
+    _, _, _, taps, meta = _fold_geometry(tmpl_bytes, span)
+    return (torch.tensor(taps, device=device),
+            torch.tensor(meta, device=device))
+
+
 def detect_metric_xcorr_onepass(ext: torch.Tensor, tmpl: np.ndarray,
                                 span: int, n_metric: int,
                                 floor_scale: float = 1e-4) -> torch.Tensor:
@@ -178,7 +264,8 @@ def detect_metric_xcorr_onepass(ext: torch.Tensor, tmpl: np.ndarray,
 
     ``tmpl``: the known template (``n_seg * span`` complex host samples).
     Matches ``ofdm_sync._detect_metric_xcorr`` (time-domain MACs instead
-    of its FFT-domain correlations)."""
+    of its FFT-domain correlations).  On the card the kernel follows the
+    template (:func:`xcorr_path`)."""
     tmpl = np.ascontiguousarray(tmpl, np.complex64)
     if len(tmpl) % span:
         raise ValueError(f"template length {len(tmpl)} is not a multiple "
@@ -198,17 +285,35 @@ def detect_metric_xcorr_onepass(ext: torch.Tensor, tmpl: np.ndarray,
     floors = _row_floor((x.real ** 2 + x.imag ** 2).sum(-1), denom, span,
                         floor_scale).to(torch.float32).contiguous()
     out = torch.empty((rows, n_metric), dtype=torch.float32, device=x.device)
-    dtmpl = dea = None
-    if (len(tmpl), span) != _XC_CONST_GEOMETRY:
-        dtmpl, dea = _xcorr_device_consts(tmpl_bytes, span, str(x.device))
-    _launch("xcorr_metric_launch", x,
-            dict(rows=rows, len=length, n_tmpl=len(tmpl), span=span,
-                 n_metric=n_metric), x.data_ptr(), rows, length,
-            tre.ctypes.data_as(ctypes.c_void_p),
-            tim.ctypes.data_as(ctypes.c_void_p),
-            ea.ctypes.data_as(ctypes.c_void_p), _ptr(dtmpl), _ptr(dea),
-            len(tmpl), span, n_metric, floors.data_ptr(), out.data_ptr())
+    path = xcorr_path(tmpl, span)
+    geometry = dict(rows=rows, len=length, n_tmpl=len(tmpl), span=span,
+                    n_metric=n_metric, path=path)
+    if path == "fold":
+        P, J, g, _, _ = _fold_geometry(tmpl_bytes, span)
+        taps, meta = _fold_device_consts(tmpl_bytes, span, str(x.device))
+        try:
+            part = torch.empty((rows, J, n_metric), dtype=torch.float32,
+                               device=x.device)
+        except torch.OutOfMemoryError as err:
+            raise torch.OutOfMemoryError(
+                f"xcorr_fold_launch: partial sums at {_where(geometry)}: "
+                f"{err}") from err
+        _launch("xcorr_fold_launch", x, geometry, x.data_ptr(), rows, length,
+                span, len(tmpl) // span, P, J, g, n_metric,
+                floors.data_ptr(), taps.data_ptr(), meta.data_ptr(),
+                part.data_ptr(), out.data_ptr())
+    else:
+        dtmpl = dea = None
+        if path == "direct":
+            dtmpl, dea = _xcorr_device_consts(tmpl_bytes, span,
+                                              str(x.device))
+        _launch("xcorr_metric_launch", x, geometry, x.data_ptr(), rows,
+                length, tre.ctypes.data_as(ctypes.c_void_p),
+                tim.ctypes.data_as(ctypes.c_void_p),
+                ea.ctypes.data_as(ctypes.c_void_p), _ptr(dtmpl), _ptr(dea),
+                len(tmpl), span, n_metric, floors.data_ptr(), out.data_ptr())
     launches["detect_metric_xcorr_onepass"] += 1
+    xcorr_paths[path] += 1
     return out.reshape(*lead, n_metric)
 
 

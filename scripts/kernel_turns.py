@@ -12,7 +12,21 @@ the other, this checkout, so that drift of the card shows as a
 difference within one side.  Prints the card's name and power limit,
 then one line per run.
 
-    python3 scripts/kernel_turns.py --other DIR   # DIR: another checkout
+``--large`` times instead B1 at M = 64, 256, 1,024, 1,028 and 4,096 and
+B3 at M = 1,152, 2,048, 4,096 and at lag 2, span 9, on the single-channel
+path's first-dispatch windows at each M (8 rows of its overlap + 16,384
+samples, seeded 0.1-rms noise, the S0 template of that M): the device
+microseconds a wrapper call spends in its CUDA kernels (every kernel of
+the package's sources a call launches: B1's names hold ``xcorr``, B3's
+``autocorr_``, ``ws_lag_sums`` or ``w3_``).  ``--conv`` times the GMSK
+``--conv`` path of ``chip_smoke.py`` (its gmskframe_tx stream of 40 v27
+frames: ms per 8-block dispatch, and the Viterbi stage inside it) and
+the v27 sweep points of ``apps/ber_sweep.py`` (200 frames; GMSK hard at
+-2 and -1 dB, where headers fail, GMSK soft at -3 dB, OFDM hard at 3 dB
+and flexframe hard at 1 dB): seconds and BER a point, with each side's
+own ``chip_smoke.py`` and package.
+
+    python3 scripts/kernel_turns.py --other DIR [--large | --conv]
 """
 from __future__ import annotations
 
@@ -64,6 +78,97 @@ def wrapper_us(fn) -> float:
     return best
 
 
+def kernels_us(fn, names) -> float:
+    """Device microseconds a call of ``fn`` spends in the CUDA kernels
+    whose names hold one of ``names``, each launched once a call: the sum
+    of each kernel's mean over the launches the profiler recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    return sum((getattr(e, "self_device_time_total", None) or
+                e.self_cuda_time_total) / e.count
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count and
+               any(n in e.key for n in names))
+
+
+def run_large() -> dict:
+    """B1 and B3 at the sizes where they leave their M=48 instances."""
+    import numpy as np
+    import torch
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    from liquid_usrp_tpu_torch.ops import kernels
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+
+    def windows(m):
+        sync = ofdm_sync.make_sync(ofdm.make_ofdm_params(m, m // 8, 4),
+                                   block_size=16384, max_payload=2048)
+        return (0.1 * torch.randn(8, sync.overlap + 16384,
+                                  dtype=torch.complex64,
+                                  generator=gen)).cuda()
+    for m in (64, 256, 1024, 1028, 4096):
+        x = windows(m)
+        tmpl = np.tile(ofdm.make_ofdm_params(m, m // 8, 4).s0_time, 2)
+        span = ofdm_sync._xc_span(len(tmpl))
+        out[f"B1 M={m}"] = kernels_us(
+            lambda: kernels.detect_metric_xcorr_onepass(
+                x, tmpl, span, 16384 + 2 * m + 1), ("xcorr",))
+    b3 = ("autocorr_", "ws_lag_sums", "w3_")
+    for m in (1152, 2048, 4096):
+        x = windows(m)
+        out[f"B3 M={m}"] = kernels_us(
+            lambda: kernels.detect_metric_onepass(x, m // 4, 2 * m - m // 4),
+            b3)
+    x = windows(48)
+    out["B3 lag=2 span=9"] = kernels_us(
+        lambda: kernels.detect_metric_onepass(x, 2, 9), b3)
+    out["package"] = str(Path(kernels.__file__).resolve().parents[2])
+    return out
+
+
+def run_conv() -> dict:
+    """The GMSK ``--conv`` dispatch and the v27 sweep points, with this
+    side's ``chip_smoke.py``."""
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from liquid_usrp_tpu_torch.apps import ber_sweep as bs
+    out = {}
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        sync = cs.gm_sync(conv=True)
+        sent = cs.tx_draws(cs.GM_FRAMES, cs.GM_SEED, 8, cs.GM_PAYLOAD)
+        stream = cs.gm_transmit(str(Path(tmpdir) / "gm.iq"), "-c", "v27",
+                                "-k", "none")
+        _, out["gmsk conv dispatch ms"] = cs.gm_timing(
+            sync, stream, sent, dev, "GMSK --conv", "the card")
+        out["gmsk conv viterbi ms"] = cs.viterbi_ms(sync, stream, dev,
+                                                    "the card")
+    for fam, snr, soft in (("gmsk", -2.0, False), ("gmsk", -1.0, False),
+                           ("gmsk", -3.0, True), ("ofdm", 3.0, False),
+                           ("flex", 1.0, False)):
+        cfg = bs.make_config(fam, 200, "v27", "none", soft=soft)
+        st = bs.build_stream(cfg, 200, 0, dev)
+        noisy = bs.add_noise(st, snr)
+        row, _, sec, _, _ = cs.fid_point(bs, cfg, st, noisy, snr, dev)
+        key = f"{fam} v27 {'soft' if soft else 'hard'} {snr:g} dB"
+        out[key + " s"] = sec
+        out[key + " ber"] = row["payload_ber"]
+        out[key + " per"] = row["packet_error_rate"]
+    torch.cuda.synchronize()
+    out["package"] = str(Path(bs.__file__).resolve().parents[2])
+    return out
+
+
 def run() -> dict:
     """One side: the three kernels' device microseconds, in this process's
     ``liquid_usrp_tpu_torch``."""
@@ -98,9 +203,15 @@ def main(argv=None) -> int:
     ap.add_argument("--other", type=Path, help="another checkout's root")
     ap.add_argument("--run", action="store_true",
                     help="time one side in this process")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--large", action="store_true",
+                      help="B1 and B3 at the sizes past M=48")
+    mode.add_argument("--conv", action="store_true",
+                      help="the GMSK --conv dispatch and v27 sweep points")
     args = ap.parse_args(argv)
     if args.run:
-        print(json.dumps(run()), flush=True)
+        fn = run_large if args.large else run_conv if args.conv else run
+        print(json.dumps(fn()), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -112,13 +223,19 @@ def main(argv=None) -> int:
     sides = {"this": ROOT, "other": args.other.resolve()}
     for side in ("this", "other", "other", "this"):
         env = dict(os.environ, PYTHONPATH=str(sides[side]))
+        flags = ["--large"] if args.large else ["--conv"] if args.conv \
+            else []
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--run"], cwd=sides[side], env=env,
+                              "--run", *flags], cwd=sides[side], env=env,
                              capture_output=True, text=True)
         if out.returncode:
             print(out.stdout, out.stderr, file=sys.stderr)
             return out.returncode
         t = json.loads(out.stdout.strip().splitlines()[-1])
+        if flags:
+            print(f"{side:>5} ({t.pop('package')}): " + ", ".join(
+                f"{k} {v:.6g}" for k, v in t.items()), flush=True)
+            continue
         print(f"{side:>5} ({t['package']}): device B1 {t['B1']:.2f} us, "
               f"B2 {t['B2']:.2f} us, B3 {t['B3']:.2f} us; a wrapper call "
               f"B1 {t['B1 call']:.2f} us, B2 {t['B2 call']:.2f} us, B3 "

@@ -191,7 +191,8 @@ def profile_level(level, params, blocks, dev, stage_steps=6, wall_steps=5,
         row_of = torch.arange(ex.shape[0], device=dev).repeat_interleave(
             sync.max_frames)
         ofdm_sync._gated_decode(sync, rx.tables, ex, bool(det.any()),
-                                locs.reshape(-1), c_at.reshape(-1), row_of)
+                                locs.reshape(-1), c_at.reshape(-1), row_of,
+                                det.reshape(-1))
         e3 = _event()
         torch.cuda.synchronize()
         stages["front_end"] += e0.elapsed_time(e1) / stage_steps
@@ -294,7 +295,8 @@ def profile_ff_dispatch(rx_stream, dev, stage_calls=5, wall_calls=5,
         decoded = fs._gated_decode(sync, mf, metric, bool(det.any()),
                                    row_of, locs_f,
                                    fs._row_gather(c1, row_of, locs_f),
-                                   fs._row_gather(c2, row_of, locs_f))
+                                   fs._row_gather(c2, row_of, locs_f),
+                                   det.reshape(-1))
         e2 = _event()
         t_base = st0.base + (torch.arange(n_blocks, dtype=torch.int32,
                                           device=dev) * bs)[:, None]
@@ -367,7 +369,7 @@ def profile_gm_dispatch(stream, dev, conv, stage_calls=3, wall_calls=3,
         mod_bpsk = torch.full_like(plen, modem.MOD_BPSK)
         payload, pvalid = payload_codec.decode_payload_batch(
             sync.enc_max, sync.dec_max, sync.max_payload, ppts, mod_bpsk,
-            f0, f1, check, plen, hvalid, sync.fecs)
+            f0, f1, check, plen, hvalid, sync.fecs, rows=det.reshape(-1))
         e3 = _event()
         torch.cuda.synchronize()
         t_base = st0.base + (torch.arange(n_blocks, dtype=torch.int32,

@@ -4,10 +4,10 @@ Traces B1 at M=48 (8 rows of 16,584 samples) and B2 at M=512 (8 rows of
 101,760 samples, the wrapper launches three kernels) over windows of 100
 wrapper calls, in fresh processes, three ways: B2 with nothing before the
 calls (``bare``), with a spin kernel first (``spin``, as ``chip_smoke.py``
-opened its windows before), and with the spin kernel and the host idle
-0.05 s at each edge of the window (``edges``, as ``chip_smoke.py``'s
-``kernel_device_us`` does now).  B1's ten windows (``b1``) open with the
-spin kernel alone.  For a window that did not show all 100 launches of
+opened its windows before), and with 16 spin kernels first (``spins``,
+as ``chip_smoke.py``'s ``open_window`` does now: a loss of the first
+records falls on them).  B1's ten windows (``b1``) open with one spin
+kernel.  For a window that did not show all 100 launches of
 every kernel it prints the counts, whether the spin kernel's record was
 there, and the start of the first kernel record after the trace's start.
 Last, one JSON line: the windows and the lossy windows of each way.
@@ -20,19 +20,16 @@ import argparse
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 ITERS = 100
-EDGE_S = 0.05
 SPIN_CYCLES = 1_000_000
 B2_NAMES = ("ws_lag_sums_kernel", "cand_nms_kernel", "cand_seg_kernel")
-WAYS = {"b1": (True, 0.0, 10), "bare": (False, 0.0, 5),
-        "spin": (True, 0.0, 5), "edges": (True, EDGE_S, 5)}
+WAYS = {"b1": (1, 10), "bare": (0, 5), "spin": (1, 5), "spins": (16, 5)}
 
 
-def trace(fn, names, spin: bool, edge: float) -> dict:
+def trace(fn, names, spins: int) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -40,13 +37,11 @@ def trace(fn, names, spin: bool, edge: float) -> dict:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(edge)
-        if spin:
+        for _ in range(spins):
             torch.cuda._sleep(SPIN_CYCLES)
         for _ in range(ITERS):
             fn()
         torch.cuda.synchronize()
-        time.sleep(edge)
     res = prof.profiler.kineto_results
     dev = [e for e in res.events() if e.device_type() == DeviceType.CUDA]
     first = min((e.start_ns() for e in dev), default=res.trace_start_ns())
@@ -74,9 +69,9 @@ def one(seed: int) -> dict:
         "b2": (lambda: kernels.detect_candidates_onepass(
             x2, 128, 896, 512, 16384, 0.5, 8), B2_NAMES)}
     out = {}
-    for way, (spin, edge, n) in WAYS.items():
+    for way, (spins, n) in WAYS.items():
         fn, names = calls["b1" if way == "b1" else "b2"]
-        out[way] = [trace(fn, names, spin, edge) for _ in range(n)]
+        out[way] = [trace(fn, names, spins) for _ in range(n)]
     return out
 
 

@@ -35,6 +35,18 @@ output finite and of its shape; ``sync_block`` at M = 512 (B2), 1,028
 (B1) and 1,152 (B3) decoding every frame with the CPU path's rows
 (t_start and flags exact, valid payloads exact, ``cfo`` within 1e-5).
 
+B1's period fold (``csrc/xcorr_fold.cu``) at M = 64, 256, 1,024, 1,028,
+2,052 and 4,096 (rows holding a frame, rows shorter than the template's
+reach, a +40 dB frame before quiet samples) and on 70,000 rows beside the
+direct form: max abs difference <= 1e-4 as above (its segment sums run in
+another order than the plain version's taps; the fold's model on the CPU
+is within 2.4e-7, ``tests/test_torch_kernel_paths.py``), outputs at 0
+(every segment gated) equal, and equal candidates (NMS radius M,
+threshold 0.3).  B3's window sums at M = 1,152, 2,048 and 4,096 (1,148,
+its persistent kernel, beside them), with and without the burst, under
+B3's limits above with equal zeros and candidates, and at spans of at
+most 9, also on 70,000 rows.
+
 The flexframe path runs no kernel; its tests hold the card against the CPU:
 the front end (``_mf_and_detect``) with identical detections and detected
 offsets, ``mf`` within 1e-5 of max |mf| and the metric within 1e-4 where
@@ -355,6 +367,110 @@ def test_b3_large_m_matches_plain(cuda, M):
     """B3 past its persistent kernel's tile (span + lag > 2,301), and at
     1,148, the largest M that kernel takes."""
     _check_b3(_large_rows(M, 3, M).to(cuda), M)
+
+
+def _same_candidates(got, ref, M):
+    """The detect front end's candidates (NMS radius M, threshold 0.3, 4 a
+    row) of two metrics: equal flags and equal offsets where detected."""
+    from liquid_usrp_tpu_torch.ops import corr
+    T = got.shape[-1] - 2 * M
+    vg, lg = corr.find_candidates(got, M, T, 0.3, 4)
+    vr, lr = corr.find_candidates(ref, M, T, 0.3, 4)
+    assert torch.equal(vg > 0, vr > 0)
+    assert torch.equal(lg[vg > 0], lr[vr > 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [64, 256, 1024, 1028, 2052, 4096])
+@pytest.mark.parametrize("kind", ["frames", "short", "loud"])
+def test_b1_fold_matches_plain(cuda, M, kind):
+    """B1's period-fold path (``csrc/xcorr_fold.cu``) against the plain
+    version: rows holding a frame, rows shorter than the template's reach
+    (zero padding), and a +40 dB frame before quiet samples.  Max abs
+    difference <= 1e-4 (as every B1 test; the fold sums each segment's
+    taps in another order), outputs under the floor (every segment gated)
+    equal 0 in both, equal candidates."""
+    params = _params(M)
+    tmpl = np.tile(params.s0_time, ofdm.NUM_S0)
+    span = ofdm_sync._xc_span(len(tmpl))
+    assert kernels.xcorr_path(tmpl, span) == "fold"
+    if kind == "short":
+        x = _large_rows(M, 3, M)[:, :len(tmpl) + 3 * M].to(cuda)
+        n_metric = x.shape[-1] + 2 * M
+    else:
+        x = _large_rows(M, 3, M, loud=kind == "loud").to(cuda)
+        n_metric = x.shape[-1] - len(tmpl) + 1
+    kernels.reset_launch_counts()
+    got = kernels.detect_metric_xcorr_onepass(x, tmpl, span, n_metric)
+    torch.cuda.synchronize()
+    ref = kernels.detect_metric_xcorr_plain(x, tmpl, span, n_metric)
+    assert got.shape == ref.shape == (3, n_metric)
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert torch.equal(got == 0, ref == 0)
+    if kind != "short":
+        _same_candidates(got, ref, M)
+    assert kernels.launches["detect_metric_xcorr_onepass"] == 1
+    assert kernels.xcorr_paths == {"const": 0, "fold": 1, "direct": 0}
+
+
+@pytest.mark.gpu
+def test_b1_fold_and_direct_take_70000_rows(cuda):
+    """More rows than a grid's y dimension holds, through the fold (M = 64,
+    an S0 template) and the direct form (a template with no period)."""
+    M, n = 64, 520
+    rng = np.random.default_rng(70001)
+    x = (0.02 * (rng.normal(size=(70000, n)) + 1j *
+                 rng.normal(size=(70000, n)))).astype(np.complex64)
+    tmpl = np.tile(_params(M).s0_time, ofdm.NUM_S0)
+    for r in range(0, 70000, 7):
+        pos = 40 + r % 200
+        x[r, pos:pos + len(tmpl)] += tmpl
+    x = torch.as_tensor(x).to(cuda)
+    noise = (rng.normal(size=len(tmpl)) + 1j * rng.normal(size=len(tmpl))
+             ).astype(np.complex64)
+    n_metric = n - len(tmpl) + 1
+    for t, path in ((tmpl, "fold"), (noise, "direct")):
+        kernels.reset_launch_counts()
+        got = kernels.detect_metric_xcorr_onepass(x, t, 16, n_metric)
+        torch.cuda.synchronize()
+        ref = kernels.detect_metric_xcorr_plain(x, t, 16, n_metric)
+        assert float((got - ref).abs().max()) <= 1e-4
+        assert kernels.xcorr_paths[path] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1148, 1152, 2048, 4096])
+@pytest.mark.parametrize("loud", [False, True])
+def test_b3_window_path_matches_plain(cuda, M, loud):
+    """B3 past its persistent kernel's tile (chunked window sums, metric
+    and c written once), and at 1,148, the largest M that kernel takes:
+    rows holding a frame, with and without a +40 dB frame before quiet
+    samples, against the plain version (metric <= 1e-4, c within 1e-4 of
+    max |c|), equal gates (outputs at 0) and equal candidates."""
+    x = _large_rows(M, 3, M + 1, loud=loud).to(cuda)
+    _check_b3(x, M)
+    lag, span = M // 4, ofdm.NUM_S0 * M - M // 4
+    m, _ = kernels.detect_metric_onepass(x, lag, span)
+    mr, _ = kernels.autocorr_metric(x, lag, span)
+    assert torch.equal(m == 0, mr == 0)
+    _same_candidates(m, mr, M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lag,span,rows,length", [
+    (2, 9, 3, 3000), (5, 3, 3, 2000), (300, 1, 2, 5000), (7, 8, 70000, 90)])
+def test_b3_short_spans_match_plain(cuda, lag, span, rows, length):
+    """Spans of at most 9 (term-by-term window sums), also on 70,000 rows."""
+    rng = np.random.default_rng(lag * 100 + span)
+    x = torch.as_tensor((0.1 * (rng.normal(size=(rows, length)) + 1j *
+                                rng.normal(size=(rows, length)))
+                         ).astype(np.complex64)).to(cuda)
+    m, c = kernels.detect_metric_onepass(x, lag, span)
+    torch.cuda.synchronize()
+    mr, cr = kernels.autocorr_metric(x, lag, span)
+    assert m.shape == mr.shape == (rows, length - span - lag + 1)
+    assert float((m - mr).abs().max()) <= 1e-4
+    assert float((c - cr).abs().max()) <= 1e-4 * float(cr.abs().max())
 
 
 @pytest.mark.gpu

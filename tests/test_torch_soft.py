@@ -11,8 +11,7 @@ imaginary parts, as its hard demappers do; measured 2.4e-7 for
 signs wherever |LLR| exceeds that.  ``golay_decode_soft`` scores in float64
 where JAX scores in float32: the messages are equal except on blocks whose
 two best scores lie within 1e-5 of the best (near-ties, counted).  Header
-fields and payload bytes exact; payloads compared on header-valid rows (the
-port decodes the conv/RS schemes only there).
+fields and payload bytes exact, on every row, header-valid or not.
 """
 import zlib
 
@@ -260,8 +259,7 @@ def fec_matrix():
 def test_decode_payload_batch_soft_full_matrix(fec_matrix):
     """Every FEC pair (fec1 none and Hamming(12,8), so the inner conv rows
     decode both channel LLRs and pseudo-LLRs) decodes its payload, equal
-    to JAX on the header-valid rows; header-invalid rows are invalid in
-    both."""
+    to JAX on every row; header-invalid rows are invalid in both."""
     combos, pays, P, fields, hv, (jpay, jvalid) = fec_matrix
     pay, valid = tpc.decode_payload_batch_soft(
         ENC_MAX, PLEN + 4, PLEN, torch.as_tensor(P),
@@ -269,7 +267,7 @@ def test_decode_payload_batch_soft_full_matrix(fec_matrix):
         fecs=tpc.PAYLOAD_FECS_FULL)
     pay, valid = pay.numpy(), valid.numpy()
     np.testing.assert_array_equal(valid, jvalid)
-    np.testing.assert_array_equal(pay[hv], jpay[hv])
+    np.testing.assert_array_equal(pay, jpay)
     for r, (props, sent) in enumerate(zip(combos, pays)):
         name = (f"{jfec.fec_name(props.fec0)}+"
                 f"{jfec.fec_name(props.fec1)}")
