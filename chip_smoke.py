@@ -385,20 +385,24 @@ FID_INVALID_SNRS = (-2.0, -1.0)  # GMSK v27 hard: headers fail (fault C6)
 # every OFDM size the JAX package takes (phase 29): per M, the detect
 # config (xcorr_detect, use_pallas) whose kernel leaves its M=48 tiling
 # there, and the CUDA kernels a call of its wrapper launches at that M
+# (B2's window-sum path runs its chunk totals only past M = 512:
+# kernels.candidates_kernels names those of a geometry)
 LM_CONFIGS = {512: (True, 2, "detect_candidates_onepass"),
               1028: (True, 1, "detect_metric_xcorr_onepass"),
               1152: (False, 1, "detect_metric_onepass")}
 LM_KERNELS = {"detect_metric_xcorr_onepass": ("xcorr_fold_kernel",
                                               "xcorr_fold_sum_kernel"),
-              "detect_candidates_onepass": ("ws_lag_sums_kernel",
-                                            "cand_nms_kernel",
-                                            "cand_seg_kernel"),
+              "detect_candidates_onepass": ("w3_totals_kernel",
+                                            "cand_sums_kernel",
+                                            "cand_pick_kernel"),
               "detect_metric_onepass": ("w3_totals_kernel",
                                         "w3_metric_kernel")}
 # the sizes of phase 29's redesigned paths, timed on windows of the shape
 # of the single-channel path's first dispatch at each M: B1's period
-# fold, B3's window sums (and B3 at a span of at most 9, at M=48's shape)
+# fold, B2's and B3's window sums (and B3 at a span of at most 9, at
+# M=48's shape)
 LM_FOLD_SIZES = (64, 256, 1024, 1028, 4096)
+LM_B2_SIZES = (512, 1024, 2048, 4096)
 LM_W3_SIZES = (1152, 2048, 4096)
 LM_W3_SHORT = (2, 9)           # (lag, span)
 LM_PLAIN_ITERS = 2             # plain-version calls timed at these sizes
@@ -3499,18 +3503,33 @@ def lm_kernels(m, exts, params):
         plain, args = kernels.autocorr_metric, (exts, lag, L)
         nf = work(name, *shape, span=L, lag=lag)
     return timed(name, getattr(kernels, name), plain, args, errs[name], nf,
-                 shape, label=f"{name} at M={m}", kernel=LM_KERNELS[name])
+                 shape, label=f"{name} at M={m}", kernel=lm_names(name, m))
+
+
+def lm_names(name, m):
+    """The CUDA kernels of ``LM_KERNELS[name]`` that a call launches at M
+    = ``m`` (B2's chunk totals only where a block is more than one
+    chunk)."""
+    if name != "detect_candidates_onepass":
+        return LM_KERNELS[name]
+    from liquid_usrp_tpu_torch.ops import kernels
+    names = kernels.candidates_kernels(m // 4, 2 * m - m // 4, m)
+    if not set(names) <= set(LM_KERNELS[name]):
+        raise AssertionError(f"B2 at M={m} launches {names}")
+    return names
 
 
 def lm_redesign(dev):
-    """B1's period fold at ``LM_FOLD_SIZES`` and B3's window sums at
-    ``LM_W3_SIZES`` and ``LM_W3_SHORT``, on windows of the single-channel
-    path's first dispatch at each M (its shape, ``[SC_BATCH, overlap +
-    SC_BLOCK]``): seeded 0.01-rms noise with the S0 template at an offset
-    of each row that the outputs reach, and in row 0 a +40 dB copy of it
-    before quiet noise.  Each against its plain version (the limits of
-    phase 3), the fold path taken and counted, and timed (device time of
-    the path's kernels, bound, share).  Returns {label: timed entry}."""
+    """B1's period fold at ``LM_FOLD_SIZES``, B2's window sums at
+    ``LM_B2_SIZES`` and B3's at ``LM_W3_SIZES`` and ``LM_W3_SHORT``, on
+    windows of the single-channel path's first dispatch at each M (its
+    shape, ``[SC_BATCH, overlap + SC_BLOCK]``): seeded 0.01-rms noise with
+    the S0 template at an offset of each row that the outputs reach, and
+    in row 0 a +40 dB copy of it before quiet noise (B2's detect region
+    ``[M, n_out - M)``, which holds every row's template).  Each against
+    its plain version (the limits of phase 3), B1's fold path and B2's
+    window-sum path taken and counted, and timed (device time of the
+    path's kernels, bound, share).  Returns {label: timed entry}."""
     from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
     from liquid_usrp_tpu_torch.ops import kernels
     out = {}
@@ -3546,6 +3565,23 @@ def lm_redesign(dev):
             work(name, *shape, n_metric=args[3], tmpl=tmpl, span=span),
             shape, label=f"B1 period fold at M={m}",
             kernel=LM_KERNELS[name], plain_iters=LM_PLAIN_ITERS)
+    name = "detect_candidates_onepass"
+    for m in LM_B2_SIZES:
+        exts = windows(m)[2]
+        shape = tuple(exts.shape)
+        lag, span = m // 4, 2 * m - m // 4
+        args = (exts, lag, span, m, shape[1] - span - lag + 1 - 2 * m, 0.5,
+                8)
+        kernels.reset_launch_counts()
+        err = b2_vs_plain(args, f"B2 window sums at M={m} {shape}")
+        if kernels.cand_paths["window_sums"] != 1:
+            raise AssertionError(f"B2 at M={m} took {kernels.cand_paths}")
+        out[f"B2 M={m}"] = timed(
+            name, kernels.detect_candidates_onepass,
+            kernels.detect_candidates_plain, args, err,
+            work(name, *shape, span=span, lag=lag), shape,
+            label=f"B2 window sums at M={m}", kernel=lm_names(name, m),
+            plain_iters=LM_PLAIN_ITERS)
     name = "detect_metric_onepass"
     geoms = [(m, m // 4, 2 * m - m // 4) for m in LM_W3_SIZES]
     geoms.append((M, *LM_W3_SHORT))
@@ -3642,6 +3678,9 @@ def lm_decode(m, stream, sent, dev):
     launches = dict(kernels.launches)
     if launches[name] <= 0:
         raise AssertionError(f"M={m}: {name} was not launched")
+    if name == "detect_candidates_onepass" and \
+            kernels.cand_paths["window_sums"] != launches[name]:
+        raise AssertionError(f"M={m}: B2 took {kernels.cand_paths}")
     frames = [dict(header=r["header"], payload_valid=bool(r["payload_valid"]),
                    payload=r["payload"][:int(r["payload_len"])])
               for r in got]

@@ -325,27 +325,15 @@ static int metric_launch_one_pass(const float2* ext, int rows, int len,
 // ---------------------------------------------------------------------------
 // The window-sum path: the geometries the persistent kernel does not take.
 //
-// span > W3_DIRECT (OFDM M >= 1,152): windows split at the multiples of
-// span (van Herk / Gil-Werman with blocks of the window's own length): the
-// window at offset n = b*span + q is the suffix of block b from q plus the
-// prefix of block b + 1 up to q - 1, for the four planes Re and Im of
-// x[i] conj(x[i + lag]), |x[i]|^2 and |x[i + lag]|^2 (c, e1 and e2 at
-// once, so e2 needs no second read of an e1 plane).  A block is cut into
-// chunks of W3_CH terms.  w3_totals_kernel sums each chunk (one CUDA block
-// a chunk, a fixed tree) into 16 bytes of scratch.  w3_metric_kernel
-// takes one chunk of outputs of one block at a time (a tile): it stages
-// the chunk's samples of blocks b and b + 1 with their lag halo in shared
-// memory, forms the terms there, scans them (a suffix scan in block b, an
-// exclusive prefix scan in block b + 1: per thread, across lanes by
-// shuffles, across warps from shared memory), adds the totals of the
-// chunks between (later chunks of block b, earlier ones of block b + 1,
-// in a fixed order), and writes metric and c, staged in shared memory for
+// span > W3_DIRECT (OFDM M >= 1,152): the window sums of window_sums.cuh
+// (shared with kernel B2), in chunks of W3_CH terms: w3_totals_kernel sums
+// each chunk into 16 bytes of scratch, and w3_metric_kernel takes one
+// chunk of outputs of one block at a time (a tile), forms its windows
+// (w3_window_sums) and writes metric and c, staged in shared memory for
 // coalesced stores.  Its grid is persistent: the blocks an SM holds walk
 // the tiles, the copies of a block's next tile in flight while it scans
-// this one.  Every window is a sum of its own terms only, with no
-// subtraction, so a loud burst leaves no residue in the quiet samples
-// after it; no sum depends on timing.  c and e1 never go to device
-// memory: the only scratch is one float4 per chunk.
+// this one.  c and e1 never go to device memory: the only scratch is one
+// float4 per chunk.
 //
 // span <= W3_DIRECT: w3_direct_kernel stages a tile of W3_CH outputs with
 // its span + lag halo and sums each window's few terms in order.
@@ -355,131 +343,10 @@ static int metric_launch_one_pass(const float2* ext, int rows, int len,
 // chunk total, once in each of the two tiles whose scans read it), from
 // samples that L2 serves after the first read.  Seven terms a thread and
 // 128 threads a block measured fastest of the variants tried at M = 1,152
-// and 4,096 (scripts/large_m_variants.py, NVIDIA H100 80GB HBM3 at a
+// and 4,096 (scripts/kernel_variants.py --w3, NVIDIA H100 80GB HBM3 at a
 // 700.00 W power limit: 16.9 and 18.3 us, against 18.8 and 25.2 us with
 // three terms and 256 threads).
-#define W3_R 7                       // terms per thread (odd: no conflicts)
-#define W3_THREADS 128
-#define W3_CH (W3_R * W3_THREADS)    // terms of a chunk, outputs of a tile
-#define W3_WARPS (W3_THREADS / 32)
 #define W3_DIRECT 9                  // spans summed term by term
-
-// Re and Im of a * conj(b), |a|^2, |b|^2.
-__device__ inline void w3_term(float2 a, float2 b, float* v) {
-  v[0] = a.x * b.x + a.y * b.y;
-  v[1] = a.y * b.x - a.x * b.y;
-  v[2] = a.x * a.x + a.y * a.y;
-  v[3] = b.x * b.x + b.y * b.y;
-}
-
-// Sample i of a row, repeating the last one past the row end.
-__device__ inline float2 w3_x(const float2* __restrict__ rp, int len,
-                              long long i) {
-  return rp[i < len ? i : len - 1];
-}
-
-// dst[i] = sample n0 + i of the row for i < n, by 8-byte cp.async copies
-// (the last sample past the row end), all in flight at once.
-__device__ inline void w3_stage(float2* dst, const float2* __restrict__ rp,
-                                int len, long long n0, int n) {
-  for (int i = threadIdx.x; i < n; i += W3_THREADS) {
-    const long long gi = n0 + i;
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(rp + (gi < len ? gi : len - 1))
-                 : "memory");
-  }
-}
-
-// Chunk totals: tot[(row * nbt + b) * nch + k] for every block b < nbt
-// (one more than the blocks holding outputs: their windows reach it), one
-// block a chunk.
-static __global__ void __launch_bounds__(W3_THREADS)
-w3_totals_kernel(const float2* __restrict__ ext, int len, int lag, int span,
-                 int nch, int nbt, float4* __restrict__ tot) {
-  __shared__ float red[4][W3_WARPS];
-  const unsigned w = blockIdx.x;  // < 2^31 (the launch checks)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k = (int)(w % (unsigned)nch);
-  const unsigned rb = w / (unsigned)nch;
-  const int b = (int)(rb % (unsigned)nbt);
-  const long long row = rb / (unsigned)nbt;
-  const long long s0 = (long long)b * span + (long long)k * W3_CH;
-  const int n = min(W3_CH, span - k * W3_CH);
-  const float2* rp = ext + row * len;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < W3_R; ++r) {
-    const int i = r * W3_THREADS + tid;
-    if (i < n) {
-      float v[4];
-      w3_term(w3_x(rp, len, s0 + i), w3_x(rp, len, s0 + i + lag), v);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) acc[p] += v[p];
-    }
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      acc[p] += __shfl_down_sync(0xffffffffu, acc[p], d);
-  if (lane == 0)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) red[p][warp] = acc[p];
-  __syncthreads();
-  if (tid == 0) {
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int q = 0; q < W3_WARPS; ++q)
-#pragma unroll
-      for (int p = 0; p < 4; ++p) t[p] += red[p][q];
-    tot[w] = make_float4(t[0], t[1], t[2], t[3]);
-  }
-}
-
-// One tile: outputs b*span + k*W3_CH + [0, W3_CH) (inside block b) of one
-// row; tile = (row * nblk + b) * nch + k < 2^31 (the launch checks), so
-// its index splits by 32-bit division.
-struct W3Tile {
-  long long row, n0;  // the row, its first output
-  int b, k, nl;       // the block, the chunk, the chunk's terms
-};
-
-__device__ inline W3Tile w3_tile(unsigned tile, int span, int nch,
-                                 int nblk) {
-  W3Tile t;
-  t.k = (int)(tile % (unsigned)nch);
-  const unsigned rb = tile / (unsigned)nch;
-  t.b = (int)(rb % (unsigned)nblk);
-  t.row = rb / (unsigned)nblk;
-  t.n0 = (long long)t.b * span + (long long)t.k * W3_CH;
-  t.nl = min(W3_CH, span - t.k * W3_CH);
-  return t;
-}
-
-// Shared-memory float2 slots of one staging buffer: the samples of block
-// b's chunk k and of block b + 1's chunk k, each with its lag halo, then
-// the chunk totals of blocks b and b + 1 (2 nch float4).
-__host__ __device__ inline int w3_buf(int lag, int nch) {
-  return 2 * (W3_CH + lag) + 4 * nch;
-}
-
-// Issues the copies of a tile's samples and chunk totals into ``buf``.
-__device__ inline void w3_stage_tile(float2* buf, const W3Tile& t,
-                                     const float2* __restrict__ ext, int len,
-                                     int lag, int span, int nch, int nblk,
-                                     const float4* __restrict__ tot) {
-  const float2* rp = ext + t.row * len;
-  w3_stage(buf, rp, len, t.n0, t.nl + lag);
-  w3_stage(buf + W3_CH + lag, rp, len, t.n0 + span, t.nl + lag);
-  float4* ts = reinterpret_cast<float4*>(buf + 2 * (W3_CH + lag));
-  const float4* tc = tot + (t.row * (nblk + 1) + t.b) * nch;
-  for (int i = threadIdx.x; i < 2 * nch; i += W3_THREADS) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(ts + i);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(tc + i)
-                 : "memory");
-  }
-}
 
 // A persistent grid: the blocks an SM holds walk the tiles with a grid
 // stride, and the copies of a block's next tile are in flight (into the
@@ -491,22 +358,22 @@ w3_metric_kernel(const float2* __restrict__ ext, int len, int lag, int span,
                  const float4* __restrict__ tot, float* __restrict__ metric,
                  float2* __restrict__ c) {
   extern __shared__ __align__(16) float2 w3s[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int nb = w3_buf(lag, nch);
   float* wt = reinterpret_cast<float*>(w3s + 2 * nb);  // [2][4][warps]
   unsigned it = blockIdx.x;  // < tiles: the grid holds at most one a tile
-  W3Tile t = w3_tile(it, span, nch, nblk);
+  W3Tile t = w3_tile(it, span, W3_CH, nch, nblk);
   w3_stage_tile(w3s, t, ext, len, lag, span, nch, nblk, tot);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   for (int buf = 0; it < tiles; it += gridDim.x, buf ^= 1) {
     float2* XA = w3s + buf * nb;    // block b:     n0 + [0, nl + lag)
-    float2* XB = XA + W3_CH + lag;  // block b + 1: n0 + span + [...)
-    const float4* ts = reinterpret_cast<const float4*>(XB + W3_CH + lag);
+    float2* XB = XA + w3_half(lag);  // block b + 1
     // 1. The next tile's copies into the other buffer (free since the
     //    barrier ending the last iteration), then wait for this tile's.
     const unsigned nxt = it + gridDim.x;
-    const W3Tile tn = w3_tile(nxt < tiles ? nxt : it, span, nch, nblk);
+    const W3Tile tn = w3_tile(nxt < tiles ? nxt : it, span, W3_CH, nch,
+                                nblk);
     if (nxt < tiles)
       w3_stage_tile(w3s + (buf ^ 1) * nb, tn, ext, len, lag, span, nch, nblk,
                     tot);
@@ -520,96 +387,17 @@ w3_metric_kernel(const float2* __restrict__ ext, int len, int lag, int span,
     }
     const int nl = t.nl;
 
-    // 2. The chunks between: later chunks of block b, earlier ones of b + 1.
-    float tsuf[4] = {0.f, 0.f, 0.f, 0.f}, tpre[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kk = nch - 1; kk > t.k; --kk) {
-      const float4 v = ts[kk];
-      tsuf[0] += v.x; tsuf[1] += v.y; tsuf[2] += v.z; tsuf[3] += v.w;
-    }
-    for (int kk = 0; kk < t.k; ++kk) {
-      const float4 v = ts[nch + kk];
-      tpre[0] += v.x; tpre[1] += v.y; tpre[2] += v.z; tpre[3] += v.w;
-    }
-
-    // 3. Own terms i = tid * W3_R + r: in-thread suffix sums of block b's
-    //    (sa), exclusive prefix sums of block b + 1's (pb).
-    float sa[W3_R][4], pb[W3_R][4], ta[4], tb[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) ta[p] = tb[p] = 0.f;
-#pragma unroll
-    for (int r = W3_R - 1; r >= 0; --r) {
-      const int i = tid * W3_R + r;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (i < nl) w3_term(XA[i], XA[i + lag], v);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) sa[r][p] = ta[p] = v[p] + ta[p];
-    }
-#pragma unroll
-    for (int r = 0; r < W3_R; ++r) {
-      const int i = tid * W3_R + r;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (i < nl) w3_term(XB[i], XB[i + lag], v);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        pb[r][p] = tb[p];
-        tb[p] += v[p];
-      }
-    }
-    // across lanes: inclusive scans of the thread totals, then shifted by
-    // one lane (the lanes after / before this one)
-    float la[4], lb[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      float sv = ta[p], qv = tb[p];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const float s2 = __shfl_down_sync(0xffffffffu, sv, d);
-        const float q2 = __shfl_up_sync(0xffffffffu, qv, d);
-        if (lane + d < 32) sv += s2;
-        if (lane >= d) qv = q2 + qv;
-      }
-      if (lane == 0) wt[p * W3_WARPS + warp] = sv;  // warp totals
-      if (lane == 31) wt[(4 + p) * W3_WARPS + warp] = qv;
-      const float s1 = __shfl_down_sync(0xffffffffu, sv, 1);
-      const float q1 = __shfl_up_sync(0xffffffffu, qv, 1);
-      la[p] = lane < 31 ? s1 : 0.f;
-      lb[p] = lane > 0 ? q1 : 0.f;
-    }
-    __syncthreads();
-    // across warps, in a fixed order (every total read at once; the
-    // ones after / before this warp added)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      float wb = 0.f;
-#pragma unroll
-      for (int w = W3_WARPS - 1; w >= 0; --w) {
-        const float v = wt[p * W3_WARPS + w];
-        if (w > warp) la[p] += v;
-      }
-#pragma unroll
-      for (int w = 0; w < W3_WARPS; ++w) {
-        const float v = wt[(4 + p) * W3_WARPS + w];
-        if (w < warp) wb += v;
-      }
-      lb[p] = wb + lb[p];
-    }
-
-    // 4. Windows and the gated metric, staged over this buffer's samples
-    //    (every thread is past its reads of them), then coalesced stores.
+    // 2. The windows and the gated metric of the tile's outputs, staged
+    //    over this buffer's samples (every thread is past its reads of
+    //    them), then coalesced stores.
     const float floor_v = floors[t.row];
     float2* cst = XA;
     float* mst = reinterpret_cast<float*>(XB);
-#pragma unroll
-    for (int r = 0; r < W3_R; ++r) {
+    w3_window_sums(XA, lag, nch, t.k, nl, wt, [&](int r, const float* w) {
       const int i = tid * W3_R + r;
-      float wv[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        wv[p] =
-            ((sa[r][p] + la[p]) + tsuf[p]) + (tpre[p] + (lb[p] + pb[r][p]));
-      cst[i] = make_float2(wv[0], wv[1]);
-      mst[i] = ws_metric(cst[i], wv[2], wv[3], floor_v);
-    }
+      cst[i] = make_float2(w[0], w[1]);
+      mst[i] = ws_metric(cst[i], w[2], w[3], floor_v);
+    });
     __syncthreads();
     const int nv = (int)min((long long)nl, n_out - t.n0);
     float* mrow = metric + t.row * n_out + t.n0;
@@ -674,14 +462,6 @@ extern "C" long long autocorr_metric_scratch(int rows, int n_out, int lag,
   return (long long)sizeof(float4) * rows * (nblk + 1) * nch;
 }
 
-static cudaError_t w3_smem_attr(const void* kern, size_t smem) {
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 // ext: [rows, len] complex64 on the device; floors: [rows] float.
 // Outputs [rows, n_out], n_out = len - span - lag + 1: metric float, c
 // complex64 (float2); 16-byte aligned for the persistent kernel.  scratch:
@@ -720,21 +500,13 @@ extern "C" int autocorr_metric_launch(const void* ext, int rows, int len,
   if (tgrid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = sizeof(float2) * 2 * (size_t)w3_buf(lag, nch) +
                       sizeof(float) * 8 * W3_WARPS;
-  err = w3_smem_attr((const void*)w3_metric_kernel, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, w3_metric_kernel, W3_THREADS, smem);
+  long long mgrid = 0;
+  err = w3_persistent_grid((const void*)w3_metric_kernel, smem, tiles,
+                           &mgrid);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long mgrid =
-      tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
   float4* tot = (float4*)scratch;
-  w3_totals_kernel<<<(unsigned)tgrid, W3_THREADS, 0, st>>>(
-      (const float2*)ext, len, lag, span, nch, nblk + 1, tot);
+  w3_totals_kernel<W3_CH><<<(unsigned)tgrid, W3_THREADS, 0, st>>>(
+      (const float2*)ext, len, lag, span, W3_CH, nch, nblk + 1, tot);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   w3_metric_kernel<<<(unsigned)mgrid, W3_THREADS, smem, st>>>(

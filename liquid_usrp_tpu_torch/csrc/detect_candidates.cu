@@ -56,10 +56,8 @@
 // leave a tile of at least CAND_SEG of its CAND_SPAN offsets, and span is
 // at most 3 * CAND_THREADS + CAND_PAD, so the one-pass kernel takes OFDM M
 // up to 475.  Every other geometry, up to any M the JAX package takes, runs
-// three passes through device memory whose windows need no halo on chip
-// (see the second half of this file and window_sums.cuh); it writes and
-// reads back c, e1 and a score per output, about 40 B an output against
-// the one-pass kernel's 8.
+// the window-sum path of the second half of this file, whose windows need
+// no halo on chip (window_sums.cuh, shared with kernel B3).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -360,92 +358,503 @@ static int cand_launch_one_pass(const float2* ext, int rows, int len,
 }
 
 // ---------------------------------------------------------------------------
-// Every other geometry: three passes through device memory, with windows of
-// any length in the split form of window_sums.cuh (each window a sum or max
-// of its own terms only, as above):
-// 1. ws_lag_sums_kernel: c [n_out] and e1 [n_out + lag] of each row;
-// 2. cand_nms_kernel: the 2 win + 1 NMS max over the metric (made from c
-//    and e1; -inf outside [0, n_out), as the plain version pads) and the
-//    score of every output n < n_seg * 64;
-// 3. cand_seg_kernel: each segment's max score, its first offset and c
-//    there.
-// c, e1 and the scores live in the caller's scratch (its bytes from
-// detect_candidates_scratch).
-// ---------------------------------------------------------------------------
+// Every other geometry (OFDM M >= 476, and any lag, span or win that the
+// one-pass kernel refuses): the window-sum path, three kernels with
+// nothing full-rate in device memory but one float32 metric plane:
+//
+// 1. w3_totals_kernel (window_sums.cuh, shared with kernel B3): the chunk
+//    totals of the span-window sums, 16 B a chunk.  A block of span terms
+//    is cut into nch balanced chunks (ch = ceil(span / nch) <= W3_CH
+//    terms); a block of one chunk (span <= W3_CH, OFDM M <= 512) needs no
+//    totals and the kernel does not run.
+// 2. cand_sums_kernel: a tile is one chunk of outputs of one block; it
+//    forms its windows on chip (w3_window_sums: c, e1 and e2 never leave
+//    the chip), its metric, and stores the metric (the plane) and, for
+//    each part of a 64-output segment that it holds, a record: the
+//    metric's max over the part, the first offset of the part's best
+//    pre-score (the metric where n is in the region and the metric over
+//    the threshold, else -1), whether a later offset of the part ties it,
+//    c there and, in the segment's first part, c at its first offset.
+//    Each thread sums up its W3_R outputs in the (at most two) segments
+//    they meet in registers; one thread a part then combines the threads'
+//    summaries in order from shared memory, so ties keep the lower
+//    offset.  A segment meets at most P tiles (its parts): 2 wherever a
+//    tile holds at least 63 outputs, as at every OFDM M >= 476, up to 64
+//    for a span of 1.  The grid is persistent, with the next tile's
+//    copies in flight, as B3's.
+// 3. cand_pick_kernel: the segment's best pre-score v at its first
+//    offset m, from its parts in order (so ties keep the lower offset).
+//    v = -1 (one thread a segment reads it): the segment scores -1 at its
+//    first offset.  Otherwise the segment goes on its block's list, and a
+//    warp takes it.  win >= 64: the NMS test runs at m alone, since an
+//    offset that passes the test has the metric's max over its window,
+//    which holds the whole segment; every offset of the segment that
+//    scores holds the segment's max metric, and the first of them is m or
+//    a later tie of m.  The window max [m - win, m + win] (clamped to
+//    [0, n_out), as the plain version pads with -inf) is the metric of
+//    its two partial end segments (the plane) and the part maxima of the
+//    segments between, exact with no O(win) work an output.  m passes:
+//    score v at m, c from its record.  m fails and no later offset ties
+//    it: -1 at the segment's first offset, c from its record.  A later
+//    tie (an exact plateau whose first offset sees a larger value at its
+//    window's edge): the warp tests the later offsets in order, and sums
+//    c at the first that passes term by term.  win < 64: the window need
+//    not hold the segment, so the warp tests, in order, every offset
+//    whose pre-score beats the best score found so far, and sums c term
+//    by term at a pick other than m.
+//
+// What bounds it on the card: device-memory traffic, 8 B read per output;
+// the plane adds 4 B written, the records about 48 B a segment, and the
+// picks read a few values an interesting segment (L2 holds them: the plane
+// is 3.2 MB at M = 512 on 8 x 101,760 windows).  The sums kernel keeps
+// c, e1 and e2 on chip, as B3's window sums do; it is bound by its scans
+// at five blocks an SM (B2_MINB: 95 registers, faster than 4 or 6 blocks
+// an SM or no cap).  The pick kernel's blocks of 1,024 threads spread a
+// frame's cluster of segments that may score over 32 warps.  The plane
+// stays because a build with no plane, whose pick kernel recomputed each
+// metric value it read term by term, measured far slower: on the
+// single-channel path's first-dispatch windows with the S0 template in
+// every row, B2 took 15.86-15.90 us with the plane and 449.9-450.0 us
+// without it at M = 512, 28.08-28.16 and 3,988.7-3,988.8 us at M = 4,096
+// (scripts/kernel_variants.py, in turns, NVIDIA H100 80GB HBM3 at a
+// 700.00 W power limit).
+#define B2_MINB 5   // blocks an SM must hold (caps the registers)
+#define CAND_PICK_THREADS 1024
 
-struct CandNms {
-  const float2* c;  // this row's [n_out]
-  const float* e1;  // this row's [n_out + lag]
-  long long n_out;
-  int lag, win, T;
-  float thr, floor_v;
-  float* score;     // this row's [n_seg * CAND_SEG]
-  __device__ float metric(long long v) const {
-    if (v < 0 || v >= n_out) return -INFINITY;
-    return ws_metric(c[v], e1[v], e1[v + lag], floor_v);
-  }
-  // term t of output n's window [n - win, n + win] is metric[t - win]
-  __device__ WsVec<1> term(long long t) const {
-    WsVec<1> r;
-    r.v[0] = metric(t - win);
-    return r;
-  }
-  __device__ void put(long long n, const WsVec<1>& v) { score[n] = v.v[0]; }
-  __device__ WsVec<1> get(long long n) const {
-    WsVec<1> r;
-    r.v[0] = score[n];
-    return r;
-  }
-  __device__ void done(long long n, const WsVec<1>& lmax) {
-    const float mv = metric(n);
-    const bool ok = (mv >= lmax.v[0]) && (mv > thr) && (n >= win) &&
-                    (n < (long long)T + win) && (n < n_out);
-    score[n] = ok ? mv : -1.f;
-  }
+// Views of the scratch: [rows][n_seg][P] for the parts.
+struct CandScratch {
+  float4* tot;     // [rows][nblk + 1][nch] chunk totals (nch > 1)
+  float* plane;    // [rows][n_out] the metric
+  float* pmax;     // the metric's max over the part (-inf if empty)
+  float* pval;     // the part's best pre-score (-2 if empty)
+  unsigned* parg;  // its first offset, a later tie in bit 31
+  float2* pc;      // c there
+  float2* cf;      // [rows][n_seg] c at the segment's first offset
+  int P;           // parts a segment
 };
 
-static __global__ void __launch_bounds__(WS_THREADS)
-cand_nms_kernel(const float2* __restrict__ c, const float* __restrict__ e1,
-                long long rows, long long n_out, int lag, int win, int T,
-                float thr, const float* __restrict__ floors, long long n_u,
-                long long nblk, float* __restrict__ score) {
-  long long row, b;
-  if (!ws_warp(rows, nblk, &row, &b)) return;
-  CandNms acc{c + row * n_out, e1 + row * (n_out + lag), n_out, lag, win, T,
-              thr, floors[row], score + row * n_u};
-  ws_block<1, true>(acc, b, 2 * win + 1, n_u, threadIdx.x & 31);
-}
+// The window-sum path's chunks and parts: a block of span terms in nch
+// balanced chunks of ch terms (the last one, the shortest tile, lmin), so
+// that a segment's 64 outputs meet at most P = 62 / lmin + 2 tiles.  It
+// takes every geometry whose offsets fit 31 bits (bit 31 of a record is
+// its tie flag) and whose chunks are all nonempty (spans up to about
+// 800,000).
+struct CandGeometry {
+  int ch, nch, P;
+  long long nblk;
+};
 
-// One thread a (row, segment): the first offset of the segment's max
-// score (ties keep the lowest) and c there.
-static __global__ void __launch_bounds__(CAND_THREADS)
-cand_seg_kernel(const float* __restrict__ score, const float2* __restrict__ c,
-                long long rows, long long n_out, int n_seg,
-                float* __restrict__ segval, int* __restrict__ segarg,
-                float* __restrict__ segcre, float* __restrict__ segcim) {
-  const long long i = (long long)blockIdx.x * CAND_THREADS + threadIdx.x;
-  if (i >= rows * n_seg) return;
-  const long long row = i / n_seg;
-  const float* s = score + i * CAND_SEG;
-  float best_v = -2.f;
-  int best_j = 0;
-  for (int j = 0; j < CAND_SEG; ++j) {
-    const float v = s[j];
-    if (v > best_v) {
-      best_v = v;
-      best_j = j;
-    }
-  }
-  const long long n = (i - row * n_seg) * CAND_SEG + best_j;
-  const float2 cv = c[row * n_out + (n < n_out ? n : n_out - 1)];
-  segval[i] = best_v;
-  segarg[i] = (int)n;
-  segcre[i] = cv.x;
-  segcim[i] = cv.y;
+static bool cand_geometry(int span, int n_seg, CandGeometry* g) {
+  g->nch = (span + W3_CH - 1) / W3_CH;
+  g->ch = (span + g->nch - 1) / g->nch;
+  g->nblk = ((long long)n_seg * CAND_SEG + span - 1) / span;
+  const int lmin = span - (g->nch - 1) * g->ch;
+  g->P = lmin > 0 ? (CAND_SEG - 2) / lmin + 2 : 2;
+  return lmin > 0 && (long long)n_seg * CAND_SEG <= 0x80000000LL;
 }
 
 static size_t cand_align(long long bytes) {
   return (size_t)((bytes + 255) & ~255LL);
+}
+
+// The scratch's views from ``base`` (null: sizes only); returns its bytes.
+static long long cand_layout(int rows, int n_out, int n_seg,
+                             const CandGeometry& g, char* base,
+                             CandScratch* sc) {
+  const long long np = (long long)g.P * rows * n_seg;
+  const long long sizes[7] = {
+      g.nch > 1 ? 16LL * rows * (g.nblk + 1) * g.nch : 0,
+      4LL * rows * n_out, 4 * np, 4 * np, 4 * np, 8 * np,
+      8LL * rows * n_seg};
+  char* at[7];
+  long long off = 0;
+  for (int q = 0; q < 7; ++q) {
+    at[q] = base ? base + off : nullptr;
+    off += (long long)cand_align(sizes[q]);
+  }
+  if (sc)
+    *sc = CandScratch{(float4*)at[0], (float*)at[1], (float*)at[2],
+                      (float*)at[3], (unsigned*)at[4], (float2*)at[5],
+                      (float2*)at[6], g.P};
+  return off;
+}
+
+// The tile of a row that holds output n < 2^31: chunk (n mod span) / ch
+// of block n / span.
+__device__ inline unsigned cand_tile_of(unsigned n, int span, int ch,
+                                        int nch) {
+  const unsigned b = n / (unsigned)span;
+  return b * (unsigned)nch + (n - b * (unsigned)span) / (unsigned)ch;
+}
+
+// A thread's summary of its outputs in one segment (its W3_R outputs meet
+// at most two): the metric's max, the best pre-score, its first output
+// (tile index) and how many of its outputs hold that score.
+struct CandSum {
+  float vmax, v;
+  int m, ties;
+  __device__ void add(float mv, float ps, int i) {
+    vmax = fmaxf(vmax, mv);
+    if (ps > v) {  // the outputs come in order: ties keep the first
+      v = ps;
+      m = i;
+      ties = 1;
+    } else if (ps == v) {
+      ++ties;
+    }
+  }
+};
+
+// Shared floats of the thread summaries: 2 per thread of vmax, v, m, ties.
+#define CAND_SUMS_SMEM (8 * W3_THREADS)
+
+// The records of the segment parts in outputs [0, ne) (ne <= nl, the
+// outputs below n_u) of the row's tile ``tile``, first output n0, from the
+// thread summaries ``sm`` (slot 2 t + h: thread t's outputs in its first
+// segment, h = 0, or the next one): one thread a part combines the
+// summaries of the threads it meets, in order.  A segment's part is the
+// count of its tiles before this one; its first part also writes c at its
+// first offset and empties the parts past its last tile (with P = 2: the
+// second part of a segment inside this tile of nl outputs).
+__device__ inline void cand_records(const CandScratch& sc, long long row,
+                                    unsigned tile, long long n0, int nl,
+                                    int ne, int n_seg, int span, int ch,
+                                    int nch, const float* sm,
+                                    const float2* cst) {
+  const int* smi = reinterpret_cast<const int*>(sm);
+  const long long s = n0 / CAND_SEG + threadIdx.x;
+  if (s > (n0 + ne - 1) / CAND_SEG) return;
+  const long long s0 = s * CAND_SEG;
+  const int a = (int)((s0 > n0 ? s0 : n0) - n0);
+  const int b = (int)min(s0 + CAND_SEG - n0, (long long)ne);
+  CandSum c{-INFINITY, -2.f, a, 0};
+  for (int t = a / W3_R; t <= (b - 1) / W3_R; ++t) {
+    const int q = 2 * t + ((n0 + t * W3_R) / CAND_SEG != s);
+    const float v = sm[2 * W3_THREADS + q];
+    c.vmax = fmaxf(c.vmax, sm[q]);
+    if (v > c.v) {  // threads in order: ties keep the lower offset
+      c.v = v;
+      c.m = smi[4 * W3_THREADS + q];
+      c.ties = smi[6 * W3_THREADS + q];
+    } else if (v == c.v) {
+      c.ties += smi[6 * W3_THREADS + q];
+    }
+  }
+  const int part =
+      s0 >= n0 ? 0
+               : sc.P == 2 ? 1
+                           : (int)(tile - cand_tile_of((unsigned)s0, span,
+                                                       ch, nch));
+  const long long o = (row * n_seg + s) * sc.P;
+  sc.pmax[o + part] = c.vmax;
+  sc.pval[o + part] = c.v;
+  sc.parg[o + part] = (unsigned)(n0 + c.m) |
+                      (c.v > -1.f && c.ties > 1 ? 0x80000000u : 0u);
+  sc.pc[o + part] = cst[c.m];
+  if (part == 0) {
+    sc.cf[row * n_seg + s] = cst[a];
+    const int q0 =
+        sc.P == 2 ? (s0 + CAND_SEG <= n0 + nl ? 1 : 2)
+                  : (int)(cand_tile_of((unsigned)(s0 + CAND_SEG - 1), span,
+                                       ch, nch) - tile) + 1;
+    for (int q = q0; q < sc.P; ++q) {
+      sc.pmax[o + q] = -INFINITY;
+      sc.pval[o + q] = -2.f;
+      sc.parg[o + q] = 0u;
+    }
+  }
+}
+
+static __global__ void __launch_bounds__(W3_THREADS, B2_MINB)
+cand_sums_kernel(const float2* __restrict__ ext, int len, int lag, int span,
+                 int ch, int nch, int nblk, unsigned tiles,
+                 const float* __restrict__ floors, int n_out, int n_seg,
+                 int win, int T, float thr, CandScratch sc) {
+  extern __shared__ __align__(16) float2 w3s[];
+  const int tid = threadIdx.x;
+  const long long n_u = (long long)n_seg * CAND_SEG;
+  const int nb = w3_buf(lag, nch);
+  float* wt = reinterpret_cast<float*>(w3s + 2 * nb);  // [2][4][warps]
+  unsigned it = blockIdx.x;  // < tiles: the grid holds at most one a tile
+  W3Tile t = w3_tile(it, span, ch, nch, nblk);
+  w3_stage_tile(w3s, t, ext, len, lag, span, nch, nblk, sc.tot);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  for (int buf = 0; it < tiles; it += gridDim.x, buf ^= 1) {
+    float2* XA = w3s + buf * nb;
+    // 1. The next tile's copies into the other buffer (free since the
+    //    barrier ending the last iteration), then wait for this tile's.
+    const unsigned nxt = it + gridDim.x;
+    const W3Tile tn = w3_tile(nxt < tiles ? nxt : it, span, ch, nch, nblk);
+    if (nxt < tiles)
+      w3_stage_tile(w3s + (buf ^ 1) * nb, tn, ext, len, lag, span, nch, nblk,
+                    sc.tot);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    if (t.n0 >= n_u) {  // past the row's segments (uniform)
+      __syncthreads();
+      t = tn;
+      continue;
+    }
+    const int nl = t.nl;
+
+    // 2. The windows and the gated metric of the tile's outputs, staged
+    //    over this buffer's samples (every thread is past its reads), and
+    //    the thread's summaries of the (at most two) segments its outputs
+    //    meet.
+    const float floor_v = floors[t.row];
+    float2* cst = XA;
+    float* mst = reinterpret_cast<float*>(XA + w3_half(lag));
+    const int ne = (int)min((long long)nl, n_u - t.n0);
+    const long long s_t = (t.n0 + tid * W3_R) / CAND_SEG;
+    CandSum h0{-INFINITY, -2.f, 0, 0}, h1{-INFINITY, -2.f, 0, 0};
+    w3_window_sums(XA, lag, nch, t.k, nl, wt, [&](int r, const float* w) {
+      const int i = tid * W3_R + r;
+      const long long n = t.n0 + i;
+      cst[i] = make_float2(w[0], w[1]);
+      const float mv = ws_metric(cst[i], w[2], w[3], floor_v);
+      mst[i] = mv;
+      if (i < ne) {
+        const bool ok = n < n_out && n >= win && n < (long long)T + win &&
+                        mv > thr;
+        const float mx = n < n_out ? mv : -INFINITY;
+        if (n / CAND_SEG == s_t)
+          h0.add(mx, ok ? mv : -1.f, i);
+        else
+          h1.add(mx, ok ? mv : -1.f, i);
+      }
+    });
+    float* sm = wt + 8 * W3_WARPS;
+    int* smi = reinterpret_cast<int*>(sm);
+    sm[2 * tid] = h0.vmax;
+    sm[2 * tid + 1] = h1.vmax;
+    sm[2 * W3_THREADS + 2 * tid] = h0.v;
+    sm[2 * W3_THREADS + 2 * tid + 1] = h1.v;
+    smi[4 * W3_THREADS + 2 * tid] = h0.m;
+    smi[4 * W3_THREADS + 2 * tid + 1] = h1.m;
+    smi[6 * W3_THREADS + 2 * tid] = h0.ties;
+    smi[6 * W3_THREADS + 2 * tid + 1] = h1.ties;
+    __syncthreads();
+
+    // 3. The metric plane (coalesced), and the records of the segment
+    //    parts the tile holds.
+    const int nv = (int)min((long long)nl, n_out - t.n0);
+    float* mrow = sc.plane + t.row * n_out + t.n0;
+    for (int i = tid; i < nv; i += W3_THREADS) mrow[i] = mst[i];
+    cand_records(sc, t.row, (unsigned)t.b * nch + t.k, t.n0, nl, ne, n_seg,
+                 span, ch, nch, sm, cst);
+    __syncthreads();  // this buffer is staged again two tiles on
+    t = tn;
+  }
+}
+
+// The picks' view of one row.
+struct CandRow {
+  const float2* rp;    // the samples
+  const float* prow;   // the metric plane's row
+  const float* pmax;   // the row's part maxima
+  int len, lag, span, win, n_out, P;
+  float thr;
+};
+
+// Terms lane, lane + 32, ... of the four window sums at offset v, summed
+// over the warp.
+__device__ inline void cand_direct(const CandRow& r, long long v, int lane,
+                                   float* w) {
+  w[0] = w[1] = w[2] = w[3] = 0.f;
+  for (int i = lane; i < r.span; i += 32) {
+    float t[4];
+    w3_term(w3_x(r.rp, r.len, v + i), w3_x(r.rp, r.len, v + i + r.lag), t);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) w[p] += t[p];
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+#pragma unroll
+    for (int p = 0; p < 4; ++p) w[p] += __shfl_xor_sync(0xffffffffu, w[p], d);
+}
+
+// max(metric[n - win .. n + win]) within [0, n_out), by the whole warp:
+// the metric of the partial segments at the ends (at most 128 offsets
+// when the window meets at most two segments, else 64 at each end), the
+// part maxima of the segments between; every lane's loads are issued
+// before their max is taken.
+__device__ inline float cand_window_max(const CandRow& r, long long n,
+                                        int lane) {
+  const long long lo = n - r.win > 0 ? n - r.win : 0;
+  const long long hi = n + r.win < r.n_out ? n + r.win : r.n_out - 1;
+  const long long sl = lo / CAND_SEG, sr = hi / CAND_SEG;
+  long long a = hi + 1, b = hi + 1;  // metric read over [lo, a), [b, hi]
+  long long np = 0;                  // part maxima between
+  if (sr - sl > 1) {
+    a = (sl + 1) * CAND_SEG;
+    b = sr * CAND_SEG;
+    np = r.P * (sr - sl - 1);
+  }
+  float mx = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const long long j = lo + lane + 32 * q;
+    if (j < a) mx = fmaxf(mx, r.prow[j]);
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const long long j = b + lane + 32 * q;
+    if (j <= hi) mx = fmaxf(mx, r.prow[j]);
+  }
+  const float* pm = r.pmax + (sl + 1) * r.P;
+#pragma unroll 4
+  for (long long q = lane; q < np; q += 32) mx = fmaxf(mx, pm[q]);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+  return mx;
+}
+
+// A segment that may score: its best pre-score v at its first offset m,
+// whether a later offset ties it, c there and at the segment's first
+// offset.
+struct CandBest {
+  float v;
+  int m, tie;
+  float2 cm, cf;
+};
+
+// The pick of segment i (row ``row``, first offset s0) from its best
+// pre-score (every lane gets it; the whole warp calls it): (value,
+// offset, c).
+struct CandPick {
+  float v;
+  long long n;
+  float2 c;
+};
+
+__device__ inline CandPick cand_pick(const CandRow& r, const CandBest& e,
+                                     long long s0, int T, int lane) {
+  const CandPick none{-1.f, s0, e.cf};
+  const long long end = s0 + CAND_SEG < r.n_out ? s0 + CAND_SEG : r.n_out;
+  long long n = -1;  // a pick whose c no record holds
+  if (r.win < CAND_SEG) {  // the best score of the segment, in order
+    CandPick best = none;
+    for (long long j = s0; j < end; ++j) {
+      const float mv = r.prow[j];
+      if (mv > best.v && mv > r.thr && j >= r.win &&
+          j < (long long)T + r.win && cand_window_max(r, j, lane) <= mv) {
+        best.v = mv;
+        best.n = j;
+      }
+    }
+    if (best.v == -1.f) return none;
+    if (best.n == e.m) return CandPick{e.v, e.m, e.cm};
+    n = best.n;
+  } else {
+    if (cand_window_max(r, e.m, lane) <= e.v)
+      return CandPick{e.v, e.m, e.cm};
+    if (!e.tie) return none;
+    for (long long j = e.m + 1; j < end && n < 0; ++j)  // the first later
+      if (r.prow[j] == e.v && j >= r.win &&             // tie passing
+          j < (long long)T + r.win && cand_window_max(r, j, lane) <= e.v)
+        n = j;
+    if (n < 0) return none;
+  }
+  float w[4];  // c there, term by term
+  cand_direct(r, n, lane, w);
+  return CandPick{r.prow[n], n, make_float2(w[0], w[1])};
+}
+
+// One thread a (row, segment) reads its records: a segment that cannot
+// score writes -1 at its first offset; one that may (a few a block,
+// clustered around a frame) goes on the block's list, and the block's
+// warps take the listed segments one each.
+static __global__ void __launch_bounds__(CAND_PICK_THREADS)
+cand_pick_kernel(const float2* __restrict__ ext, int len, int lag, int span,
+                 int win, int T, float thr, int n_out, int n_seg,
+                 long long total, CandScratch sc,
+                 float* __restrict__ segval, int* __restrict__ segarg,
+                 float* __restrict__ segcre, float* __restrict__ segcim) {
+  __shared__ CandBest list[CAND_PICK_THREADS];
+  __shared__ int at[CAND_PICK_THREADS], listed;
+  const long long base = (long long)blockIdx.x * CAND_PICK_THREADS;
+  const long long i = base + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) listed = 0;
+  __syncthreads();
+  if (i < total) {  // the parts' records in order (the first keeps ties)
+    const long long o = i * sc.P;
+    float v;
+    unsigned a;
+    float2 cm;
+    bool tie;
+    if (sc.P == 2) {  // every OFDM geometry: all loads in flight at once
+      const float2 vv = reinterpret_cast<const float2*>(sc.pval)[i];
+      const uint2 aa = reinterpret_cast<const uint2*>(sc.parg)[i];
+      const float4 cc = reinterpret_cast<const float4*>(sc.pc)[i];
+      const bool lo = vv.x >= vv.y;
+      v = lo ? vv.x : vv.y;
+      a = lo ? aa.x : aa.y;
+      cm = lo ? make_float2(cc.x, cc.y) : make_float2(cc.z, cc.w);
+      tie = (a >> 31) != 0 || vv.y == vv.x;
+    } else {
+      v = sc.pval[o];
+      a = sc.parg[o];
+      cm = sc.pc[o];
+      tie = (a >> 31) != 0;
+    }
+    for (int q = sc.P == 2 ? 2 : 1; q < sc.P; ++q) {
+      const float vq = sc.pval[o + q];
+      const unsigned aq = sc.parg[o + q];
+      const float2 cq = sc.pc[o + q];
+      if (vq > v) {
+        v = vq;
+        a = aq;
+        cm = cq;
+        tie = (aq >> 31) != 0;
+      } else if (vq == v) {
+        tie = true;
+      }
+    }
+    const float2 cf = sc.cf[i];
+    if (v > -1.f) {
+      const int k = atomicAdd(&listed, 1);
+      list[k] = CandBest{v, (int)(a & 0x7fffffffu), tie, cm, cf};
+      at[k] = threadIdx.x;
+    } else {
+      segval[i] = -1.f;
+      segarg[i] = (int)((i % n_seg) * CAND_SEG);
+      segcre[i] = cf.x;
+      segcim[i] = cf.y;
+    }
+  }
+  __syncthreads();
+  for (int k = warp; k < listed; k += CAND_PICK_THREADS / 32) {
+    const long long j = base + at[k];
+    const long long row = j / n_seg;
+    const CandRow r{ext + row * len, sc.plane + row * n_out,
+                    sc.pmax + row * n_seg * sc.P, len, lag, span, win,
+                    n_out, sc.P, thr};
+    const CandPick p = cand_pick(r, list[k], (j - row * n_seg) * CAND_SEG, T,
+                                 lane);
+    if (lane == 0) {
+      segval[j] = p.v;
+      segarg[j] = (int)p.n;
+      segcre[j] = p.c.x;
+      segcim[j] = p.c.y;
+    }
+  }
+}
+
+// The kernels detect_candidates_launch runs at a geometry (whatever the
+// row count and length, which only bound what it takes): 0 the one-pass
+// kernel's M = 48 instance, 1 its generic instance, 2 the window-sum
+// path's sums and picks, 3 those after its chunk totals.
+extern "C" int detect_candidates_path(int lag, int span, int win) {
+  if (cand_one_pass(lag, span, win))
+    return cand_kernel(lag, span, win) == detect_candidates_kernel<12, 84, 48>
+               ? 0 : 1;
+  CandGeometry g;
+  cand_geometry(span, 1, &g);
+  return g.nch > 1 ? 3 : 2;
 }
 
 // Bytes of scratch that detect_candidates_launch needs at this geometry
@@ -454,15 +863,18 @@ extern "C" long long detect_candidates_scratch(int rows, int n_out, int lag,
                                                int span, int win,
                                                int n_seg) {
   if (cand_one_pass(lag, span, win)) return 0;
-  return (long long)(cand_align(8LL * rows * n_out) +
-                     cand_align(4LL * rows * ((long long)n_out + lag)) +
-                     cand_align(4LL * rows * n_seg * CAND_SEG));
+  CandGeometry g;
+  cand_geometry(span, n_seg, &g);
+  return cand_layout(rows, n_out, n_seg, g, nullptr, nullptr);
 }
 
 // ext: [rows, len] complex64 on the device; floors: [rows] float; n_out =
 // len - span - lag + 1.  Outputs [rows, n_seg]: segval float, segarg
 // int32, segcre/segcim float.  scratch: detect_candidates_scratch bytes on
-// the device.  Returns the CUDA error code of the launches (0 = success).
+// the device.  Returns the CUDA error code of the launches (0 = success;
+// cudaErrorInvalidValue for arguments out of range, offsets past 2^31 or
+// more shared memory than an SM has, cudaErrorInvalidConfiguration for
+// more than 2^31 - 1 chunks).
 extern "C" int detect_candidates_launch(const void* ext, int rows, int len,
                                         int lag, int span, int win, int T,
                                         float thr, const void* floors,
@@ -480,28 +892,37 @@ extern "C" int detect_candidates_launch(const void* ext, int rows, int len,
         (const float2*)ext, rows, len, lag, span, win, T, thr,
         (const float*)floors, n_out, n_seg, (float*)segval, (int*)segarg,
         (float*)segcre, (float*)segcim, st);
-  char* sp = (char*)scratch;
-  float2* c = (float2*)sp;
-  float* e1 = (float*)(sp + cand_align(8LL * rows * n_out));
-  float* score = (float*)((char*)e1 +
-                          cand_align(4LL * rows * ((long long)n_out + lag)));
-  cudaError_t err = ws_lag_sums((const float2*)ext, rows, len, lag, span,
-                                n_out, c, e1, st);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_u = (long long)n_seg * CAND_SEG;
-  const long long nblk = (n_u + 2 * win) / (2 * win + 1);
-  const long long grid = ws_grid(rows, nblk);
-  const long long sgrid =
-      ((long long)rows * n_seg + CAND_THREADS - 1) / CAND_THREADS;
-  if (grid > 0x7fffffff || sgrid > 0x7fffffff)
+  CandGeometry g;
+  if (!cand_geometry(span, n_seg, &g)) return (int)cudaErrorInvalidValue;
+  CandScratch sc;
+  cand_layout(rows, n_out, n_seg, g, (char*)scratch, &sc);
+  const long long tgrid = (long long)rows * (g.nblk + 1) * g.nch;
+  const long long tiles = (long long)rows * g.nblk * g.nch;
+  const long long total = (long long)rows * n_seg;
+  const long long pgrid =
+      (total + CAND_PICK_THREADS - 1) / CAND_PICK_THREADS;
+  if (tgrid > 0x7fffffff || pgrid > 0x7fffffff)
     return (int)cudaErrorInvalidConfiguration;
-  cand_nms_kernel<<<(unsigned)grid, WS_THREADS, 0, st>>>(
-      c, e1, rows, n_out, lag, win, T, thr, (const float*)floors, n_u, nblk,
-      score);
+  const size_t smem = sizeof(float2) * 2 * (size_t)w3_buf(lag, g.nch) +
+                      sizeof(float) * (8 * W3_WARPS + CAND_SUMS_SMEM);
+  long long grid = 0;
+  cudaError_t err = w3_persistent_grid((const void*)cand_sums_kernel, smem,
+                                       tiles, &grid);
+  if (err != cudaSuccess) return (int)err;
+  const float2* x = (const float2*)ext;
+  if (g.nch > 1) {
+    w3_totals_kernel<0><<<(unsigned)tgrid, W3_THREADS, 0, st>>>(
+        x, len, lag, span, g.ch, g.nch, (int)g.nblk + 1, sc.tot);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cand_sums_kernel<<<(unsigned)grid, W3_THREADS, smem, st>>>(
+      x, len, lag, span, g.ch, g.nch, (int)g.nblk, (unsigned)tiles,
+      (const float*)floors, n_out, n_seg, win, T, thr, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cand_seg_kernel<<<(unsigned)sgrid, CAND_THREADS, 0, st>>>(
-      score, c, rows, n_out, n_seg, (float*)segval, (int*)segarg,
-      (float*)segcre, (float*)segcim);
+  cand_pick_kernel<<<(unsigned)pgrid, CAND_PICK_THREADS, 0, st>>>(
+      x, len, lag, span, win, T, thr, n_out, n_seg, total, sc,
+      (float*)segval, (int*)segarg, (float*)segcre, (float*)segcim);
   return (int)cudaGetLastError();
 }

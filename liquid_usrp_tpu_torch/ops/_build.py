@@ -45,6 +45,8 @@ _SIGNATURES = {
                                   _I, _VP, _VP, _VP, _VP, _VP, _VP], _I),
     # rows, n_out, lag, span, win, n_seg -> scratch bytes
     "detect_candidates_scratch": ([_I, _I, _I, _I, _I, _I], _LL),
+    # lag, span, win -> the path's code
+    "detect_candidates_path": ([_I, _I, _I], _I),
     # ext, rows, len, lag, span, floors, n_out, metric, c, scratch, stream
     "autocorr_metric_launch": ([_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP,
                                 _VP, _VP], _I),

@@ -9,7 +9,11 @@ Port of the five kernels of ``liquid_usrp_tpu/ops/pallas_kernels.py``:
   M; :func:`xcorr_path` chooses);
 * **B2** :func:`detect_candidates_onepass` — the fused Schmidl-Cox metric,
   NMS and per-segment reduction, then a top-k over the segment maxima
-  (``use_pallas == 2``), CUDA source ``csrc/detect_candidates.cu``;
+  (``use_pallas == 2``), CUDA source ``csrc/detect_candidates.cu`` (a
+  one-pass kernel up to OFDM M = 472, its window-sum path from 476 and
+  at any other geometry the one-pass kernel refuses, sharing
+  ``csrc/window_sums.cuh`` with B3; :func:`candidates_path` reads the
+  library's choice);
 * **B3** :func:`detect_metric_onepass` — the Schmidl-Cox metric and lag
   correlation ``(metric, c)`` at full rate (``use_pallas > 0`` with the
   legacy detector, and below the fused kernel's M >= 32), CUDA source
@@ -42,6 +46,7 @@ from . import corr
 __all__ = ["detect_metric_xcorr_onepass", "detect_metric_xcorr_plain",
            "xcorr_path", "template_period", "xcorr_paths",
            "detect_candidates_onepass", "detect_candidates_plain",
+           "candidates_path", "candidates_kernels", "cand_paths",
            "detect_metric_onepass", "detect_metric_fused_2d",
            "detect_metric_fused", "autocorr_metric", "autocorr_metric_prefix",
            "launches", "reset_launch_counts", "CAND_SEG"]
@@ -57,10 +62,12 @@ launches = {"detect_metric_xcorr_onepass": 0,
 
 # B1's launches by path (:func:`xcorr_path`), beside ``launches``
 xcorr_paths = {"const": 0, "fold": 0, "direct": 0}
+# B2's launches by path (:func:`candidates_path`)
+cand_paths = {"m48": 0, "one_pass": 0, "window_sums": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, xcorr_paths):
+    for counts in (launches, xcorr_paths, cand_paths):
         for name in counts:
             counts[name] = 0
 
@@ -390,6 +397,37 @@ def autocorr_metric(ext: torch.Tensor, lag: int, span: int,
     return metric, c
 
 
+# B2's paths by the code of csrc/detect_candidates.cu's
+# detect_candidates_path: (path, the CUDA kernels a call launches)
+_CAND_PATHS = (
+    ("m48", ("detect_candidates_kernel",)),
+    ("one_pass", ("detect_candidates_kernel",)),
+    ("window_sums", ("cand_sums_kernel", "cand_pick_kernel")),
+    ("window_sums", ("w3_totals_kernel", "cand_sums_kernel",
+                     "cand_pick_kernel")))
+
+
+@functools.lru_cache(maxsize=64)
+def _cand_path(lag: int, span: int, win: int) -> tuple:
+    return _CAND_PATHS[_lib().detect_candidates_path(lag, span, win)]
+
+
+def candidates_path(lag: int, span: int, win: int) -> str:
+    """B2's path at a geometry, as the CUDA library reports it (so only
+    where it is built, beside a card): ``"m48"`` (the one-pass kernel's
+    M = 48 template instance), ``"one_pass"`` (its generic instance, OFDM
+    M from 32 to 472) or ``"window_sums"`` (OFDM M >= 476, and every
+    other geometry)."""
+    return _cand_path(lag, span, win)[0]
+
+
+def candidates_kernels(lag: int, span: int, win: int) -> tuple:
+    """The CUDA kernels one call of B2's wrapper launches at a geometry,
+    as the CUDA library reports them: the window-sum path's chunk totals
+    only where a block of ``span`` terms is more than one chunk."""
+    return _cand_path(lag, span, win)[1]
+
+
 def detect_candidates_onepass(ext: torch.Tensor, lag: int, span: int,
                               win: int, T: int, threshold: float, k: int,
                               floor_scale: float = 1e-4):
@@ -430,6 +468,7 @@ def _detect_candidates_cuda(x, lag, span, win, T, threshold, k,
             n_out, n_seg, segval.data_ptr(), segarg.data_ptr(),
             segcre.data_ptr(), segcim.data_ptr(), _ptr(scratch))
     launches["detect_candidates_onepass"] += 1
+    cand_paths[candidates_path(lag, span, win)] += 1
     # segment-rate second stage, as the JAX wrapper runs lax.top_k
     vals, seg_idx = torch.topk(segval, k, dim=-1)
     locs = torch.gather(segarg, -1, seg_idx)

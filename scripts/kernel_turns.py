@@ -12,13 +12,18 @@ the other, this checkout, so that drift of the card shows as a
 difference within one side.  Prints the card's name and power limit,
 then one line per run.
 
-``--large`` times instead B1 at M = 64, 256, 1,024, 1,028 and 4,096 and
-B3 at M = 1,152, 2,048, 4,096 and at lag 2, span 9, on the single-channel
-path's first-dispatch windows at each M (8 rows of its overlap + 16,384
-samples, seeded 0.1-rms noise, the S0 template of that M): the device
-microseconds a wrapper call spends in its CUDA kernels (every kernel of
-the package's sources a call launches: B1's names hold ``xcorr``, B3's
-``autocorr_``, ``ws_lag_sums`` or ``w3_``).  ``--conv`` times the GMSK
+``--large`` times instead B1 at M = 64, 256, 1,024, 1,028 and 4,096, B2
+at M = 512, 1,024, 2,048 and 4,096 (its window-sum path; at 512 also on
+``chip_smoke.py`` phase 29's windows, made by each side's own script)
+and at 64, 256, 400 and 472 (its one-pass generic instance), and B3 at
+M = 1,152, 2,048,
+4,096 and at lag 2, span 9, on the single-channel path's first-dispatch
+windows at each M (8 rows of its overlap + 16,384 samples, seeded
+0.1-rms noise, the S0 template of that M; B2 at level 2's threshold 0.5,
+8 candidates): the device microseconds a wrapper call spends in its CUDA
+kernels (every kernel of the package's sources a call launches: B1's
+names hold ``xcorr``, B2's ``detect_candidates``, ``cand_``, ``w3_`` or
+``ws_lag_sums``, B3's ``autocorr_`` or ``w3_``).  ``--conv`` times the GMSK
 ``--conv`` path of ``chip_smoke.py`` (its gmskframe_tx stream of 40 v27
 frames: ms per 8-block dispatch, and the Viterbi stage inside it) and
 the v27 sweep points of ``apps/ber_sweep.py`` (200 frames; GMSK hard at
@@ -99,7 +104,7 @@ def kernels_us(fn, names) -> float:
 
 
 def run_large() -> dict:
-    """B1 and B3 at the sizes where they leave their M=48 instances."""
+    """B1-B3 at the sizes where they leave their M=48 instances."""
     import numpy as np
     import torch
     from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
@@ -120,7 +125,17 @@ def run_large() -> dict:
         out[f"B1 M={m}"] = kernels_us(
             lambda: kernels.detect_metric_xcorr_onepass(
                 x, tmpl, span, 16384 + 2 * m + 1), ("xcorr",))
-    b3 = ("autocorr_", "ws_lag_sums", "w3_")
+    b2 = ("detect_candidates", "cand_", "w3_", "ws_lag_sums")
+    x = phase29_windows(512)
+    out["B2 M=512 phase 29"] = kernels_us(
+        lambda: kernels.detect_candidates_onepass(x, 128, 896, 512, 16384,
+                                                  0.5, 8), b2)
+    for m in (512, 1024, 2048, 4096, 64, 256, 400, 472):
+        x = windows(m)
+        out[f"B2 M={m}"] = kernels_us(
+            lambda: kernels.detect_candidates_onepass(
+                x, m // 4, 2 * m - m // 4, m, 16384, 0.5, 8), b2)
+    b3 = ("autocorr_", "w3_")
     for m in (1152, 2048, 4096):
         x = windows(m)
         out[f"B3 M={m}"] = kernels_us(
@@ -131,6 +146,28 @@ def run_large() -> dict:
         lambda: kernels.detect_metric_onepass(x, 2, 9), b3)
     out["package"] = str(Path(kernels.__file__).resolve().parents[2])
     return out
+
+
+def phase29_windows(m):
+    """``chip_smoke.py`` phase 29's B2 windows at M = ``m``, made by this
+    side's ``chip_smoke.py``: the app's first dispatch of its 4-frame
+    stream in 0.01-rms noise."""
+    import tempfile
+
+    import numpy as np
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from liquid_usrp_tpu_torch.framing import ofdm
+    with tempfile.TemporaryDirectory() as tmpdir:
+        stream, _ = cs.sc_transmit(str(Path(tmpdir) / "s.iq"), m, m // 8,
+                                   cs.LM_FRAMES, cs.LM_PAYLOAD)
+    rng = np.random.default_rng(m)
+    n = cs.SC_BATCH * cs.SC_BLOCK
+    padded = (0.01 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+              ).astype(np.complex64)
+    padded[:len(stream)] += stream[:n]
+    return cs.sc_windows(ofdm.make_ofdm_params(m, m // 8, cs.TAPER), padded,
+                         "cuda")
 
 
 def run_conv() -> dict:
@@ -205,7 +242,7 @@ def main(argv=None) -> int:
                     help="time one side in this process")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--large", action="store_true",
-                      help="B1 and B3 at the sizes past M=48")
+                      help="B1-B3 at the sizes past M=48")
     mode.add_argument("--conv", action="store_true",
                       help="the GMSK --conv dispatch and v27 sweep points")
     args = ap.parse_args(argv)

@@ -1,4 +1,4 @@
-"""Tuning sweeps of B3 and B1's period fold: device time per build variant.
+"""Device time per build variant of B1's fold, B2's window sums and B3.
 
 Builds a copy of a kernel source once per variant under
 ``build/kernel_variants/``, each with its ``#define``s set to the
@@ -20,16 +20,24 @@ when its flag is given (``--b3`` with its default when none is):
   hold, which caps the registers) at M = 1,024 and 1,028;
 * ``--w3 R:threads``: B3's window sums (``W3_R`` terms a thread, odd, and
   ``W3_THREADS``) at M = 1,152 and 4,096;
+* ``--b2 minblocks[:pick_threads]``: B2's window-sum path
+  (``csrc/detect_candidates.cu``'s ``B2_MINB``, the blocks an SM must
+  hold, which caps the sums kernel's registers, and
+  ``CAND_PICK_THREADS``, the pick kernel's block, whose warps share its
+  segments that may score) at M = 512 and 4,096, at level 2's threshold
+  0.5 and 8 candidates; a variant listed twice is built once and timed
+  again, so ``5,4,4,5`` times the two in turns;
 
-the last two on windows of the single-channel path's first dispatch (8
+the last three on windows of the single-channel path's first dispatch (8
 rows of its overlap + 16,384 samples at each M, seeded 0.01-rms noise with
 the S0 template in every row).  Limits: B1 max abs difference <= 1e-4; B3
-metric <= 1e-4, ``c`` within 1e-4 of max ``|c|``.  Prints the card's name
+metric <= 1e-4, ``c`` within 1e-4 of max ``|c|``; B2 the detected mask
+equal, values within 1e-4, offsets within 3.  Prints the card's name
 and power limit, then one line per variant and M: registers and spills
 per kernel (``ptxas``), error, and microseconds per kernel.
 
     python3 scripts/kernel_variants.py [--b3 9:3,9:2:128,...] [--csrc DIR]
-        [--fold 256:2,128:4,...] [--w3 3:256,5:128,...]
+        [--fold 256:2,128:4,...] [--w3 3:256,5:128,...] [--b2 5,4:256,...]
 """
 from __future__ import annotations
 
@@ -62,22 +70,33 @@ SWEEPS = {
              (1024, 1028)),
     "w3": ("3:256,5:256,5:128,7:128", "autocorr_metric.cu",
            ("W3_R", "W3_THREADS"), (1152, 4096)),
+    "b2": ("5,4,6,5:256", "detect_candidates.cu",
+           ("B2_MINB", "CAND_PICK_THREADS"), (512, 4096)),
 }
 M48_ROWS, M48_LENGTH = 8, 100366
 
 
 def build(label: str, csrc: Path, source: str, defines: dict):
     """``csrc/<source>`` with each ``#define NAME value`` of ``defines``
-    set, built into a library: (library, ptxas registers and spills per
-    kernel)."""
-    src = (csrc / source).read_text()
+    set (in the source or in a header of ``csrc`` that holds it), built
+    into a library from copies under ``OUT/<label>/``: (library, ptxas
+    registers and spills per kernel)."""
+    files = {p.name: p.read_text() for p in
+             [csrc / source, *sorted(csrc.glob("*.cuh"))]}
     for key, value in defines.items():
-        src, n = re.subn(rf"^#define {key} \d+", f"#define {key} {value}",
-                         src, flags=re.M)
+        n = 0
+        for name, text in files.items():
+            files[name], k = re.subn(rf"^#define {key} \d+",
+                                     f"#define {key} {value}", text,
+                                     flags=re.M)
+            n += k
         if n != 1:
-            raise RuntimeError(f"{csrc / source}: no #define {key}")
-    cu, so = OUT / f"{label}.cu", OUT / f"{label}.so"
-    cu.write_text(src)
+            raise RuntimeError(f"{csrc}: {n} #define {key} (want one)")
+    where = OUT / label
+    where.mkdir(parents=True, exist_ok=True)
+    for name, text in files.items():
+        (where / name).write_text(text)
+    cu, so = where / source, OUT / f"{label}.so"
     proc = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-shared",
          "-o", str(so), str(cu)], capture_output=True, text=True)
@@ -95,7 +114,8 @@ def build(label: str, csrc: Path, source: str, defines: dict):
                         f"{spill.group(1) if spill else 0} B spilled")
     lib = ctypes.CDLL(str(so))
     for fn in ("xcorr_fold_launch", "autocorr_metric_launch",
-               "autocorr_metric_scratch"):
+               "autocorr_metric_scratch", "detect_candidates_launch",
+               "detect_candidates_scratch"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = \
                 _build._SIGNATURES[fn]
@@ -213,6 +233,44 @@ def b3_case(lib, label, m, x, stream):
     return launch, f"{err:.2e}, c {c_rel:.2e} ({'ok' if ok else 'WRONG'})"
 
 
+def b2_case(lib, label, m, x, stream):
+    """(launch, error) of B2 (``detect_candidates_launch``) on ``x``, its
+    segment maxima through the wrapper's top-k."""
+    rows, length = x.shape
+    lag, span, win, k = m // 4, 2 * m - m // 4, m, 8
+    n_out = length - span - lag + 1
+    n_seg = -(-n_out // kernels.CAND_SEG)
+    floors = kernels._row_floor((x.real ** 2 + x.imag ** 2).sum(-1), length,
+                                span, 1e-4).to(torch.float32).contiguous()
+    nbytes = lib.detect_candidates_scratch(rows, n_out, lag, span, win,
+                                           n_seg)
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device="cuda")
+    seg = [torch.empty(rows, n_seg, device="cuda", dtype=dt) for dt in
+           (torch.float32, torch.int32, torch.float32, torch.float32)]
+    args = (x, lag, span, win, 16384, 0.5, k)
+
+    def launch():
+        rc = lib.detect_candidates_launch(
+            x.data_ptr(), rows, length, lag, span, win, 16384, 0.5,
+            floors.data_ptr(), n_out, n_seg, *(t.data_ptr() for t in seg),
+            scratch.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"{label}: CUDA error {rc}")
+    launch()
+    torch.cuda.synchronize()
+    v, idx = torch.topk(seg[0], k, dim=-1)
+    loc = torch.gather(seg[1], -1, idx)
+    vr, lr, _ = kernels.detect_candidates_plain(*args)
+    det = v > 0
+    err = float((v - vr).abs().max())
+    loc_err = max((int((loc[r][det[r]].sort()[0].long() -
+                        lr[r][det[r]].sort()[0].long()).abs().max())
+                   for r in range(rows) if bool(det[r].any())), default=0)
+    ok = torch.equal(det, vr > 0) and err <= 1e-4 and loc_err <= 3
+    return launch, (f"{err:.2e}, locs {loc_err}, {int(det.sum())} detected "
+                    f"({'ok' if ok else 'WRONG'})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--b3", help="R:blocks-per-SM[:threads],... (R odd)")
@@ -220,6 +278,7 @@ def main(argv=None) -> int:
                     help="another checkout's csrc directory: its B3 at M=48")
     ap.add_argument("--fold", help="threads:minblocks,...")
     ap.add_argument("--w3", help="R:threads,... (R odd)")
+    ap.add_argument("--b2", help="minblocks[:pick_threads],... in order")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -241,9 +300,12 @@ def main(argv=None) -> int:
     if "b3" in chosen:
         jobs += [(f"b3_csrc{i}", "b3", d.resolve(), {})
                  for i, d in enumerate(args.csrc)]
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        built = list(pool.map(
-            lambda j: build(j[0], j[2], SWEEPS[j[1]][1], j[3]), jobs))
+    once = {j[0]: j for j in jobs}      # a label listed twice builds once
+    with ThreadPoolExecutor(len(once)) as pool:
+        libs = dict(zip(once, pool.map(
+            lambda j: build(j[0], j[2], SWEEPS[j[1]][1], j[3]),
+            once.values())))
+    built = [libs[j[0]] for j in jobs]
     rng = np.random.default_rng(0)
     data = {m: m48_rows() if m == 48 else dispatch_windows(m, rng)
             for sweep in chosen for m in SWEEPS[sweep][3]}
@@ -255,6 +317,8 @@ def main(argv=None) -> int:
             tmpl, x = data[m]
             if sweep == "fold":
                 launch, err = fold_case(lib, label, tmpl, x, stream)
+            elif sweep == "b2":
+                launch, err = b2_case(lib, label, m, x, stream)
             else:
                 launch, err = b3_case(lib, label, m, x, stream)
             us = per_kernel_us(launch)

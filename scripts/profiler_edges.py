@@ -1,7 +1,7 @@
 """How often ``torch.profiler`` loses kernel records at a window's start.
 
 Traces B1 at M=48 (8 rows of 16,584 samples) and B2 at M=512 (8 rows of
-101,760 samples, the wrapper launches three kernels) over windows of 100
+101,760 samples, the wrapper launches two kernels) over windows of 100
 wrapper calls, in fresh processes, three ways: B2 with nothing before the
 calls (``bare``), with a spin kernel first (``spin``, as ``chip_smoke.py``
 opened its windows before), and with 16 spin kernels first (``spins``,
@@ -25,7 +25,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 ITERS = 100
 SPIN_CYCLES = 1_000_000
-B2_NAMES = ("ws_lag_sums_kernel", "cand_nms_kernel", "cand_seg_kernel")
+B2_NAMES = ("cand_sums_kernel", "cand_pick_kernel")
 WAYS = {"b1": (1, 10), "bare": (0, 5), "spin": (1, 5), "spins": (16, 5)}
 
 

@@ -26,7 +26,11 @@ whose metric would carry a residue of a running sum).  B4/B5 vs
 metric <= 1e-5, ``c`` within 1e-5 of max ``|c|``.
 
 Every OFDM size the JAX package takes: B2 at M = 400 and 472 (the last
-its one-pass kernel takes) and 476-4,096, B1 at 1,028-4,096, B3 at 1,148 (the
+its one-pass kernel takes) and 476-8,192 (its window-sum path; a +40 dB
+burst at 512 and 4,096, an exact plateau across a tile edge at 512, and
+70,000 rows at 512, and at geometries with a span or an NMS window
+shorter than a segment, against the segment reduction of the plain
+metric), B1 at 1,028-4,096, B3 at 1,148 (the
 last its persistent kernel takes), 1,152-4,096 and at a span inside one
 chunk, B1 and B2 on 70,000 rows, all under the limits above; a
 launch-only sweep over every
@@ -72,6 +76,7 @@ import torch
 
 from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
 from liquid_usrp_tpu_torch.ops import kernels
+from test_torch_kernel_paths import B2_ANY, b2_any_case, b2_segment_plain
 
 
 @pytest.fixture(scope="module")
@@ -328,6 +333,70 @@ def test_b2_plateau_keeps_the_lowest_offset(cuda):
     _check_b2(x, M, T=x.shape[-1] - 4 * M, k=80, exact_locs=True)
 
 
+@pytest.mark.gpu
+def test_b2_window_sums_plateau_keeps_the_lowest_offset(cuda):
+    """The window-sum path (M = 512: tiles of 896 outputs) on runs of the
+    constant sample 1, one across a tile edge: every segment of a run must
+    pick its lowest offset, as the plain version does, also where the
+    segment's two parts lie in two tiles."""
+    M = 512
+    x = np.zeros((2, 16 * 896), np.complex64)
+    x[0, 3000:6000] = 1.0
+    x[1, 5 * 896 - 300:5 * 896 + 2700] = 1.0   # across a tile edge
+    x[1, 10000:12500] = 1.0
+    x = torch.as_tensor(x).to(cuda)
+    _check_b2(x, M, T=x.shape[-1] - 4 * M, k=80, exact_locs=True)
+
+
+@pytest.mark.gpu
+def test_b2_window_sums_take_70000_rows(cuda):
+    """70,000 rows at M = 512 (more than a grid's y dimension holds) on the
+    window-sum path, every seventh with a frame's S0 in its detect
+    region."""
+    M, n = 512, 2600
+    rng = np.random.default_rng(70512)
+    x = (0.02 * (rng.normal(size=(70000, n)) + 1j *
+                 rng.normal(size=(70000, n)))).astype(np.complex64)
+    f = ofdm.assemble_frame(
+        _params(M), ofdm.default_props(),
+        torch.as_tensor(rng.integers(0, 256, 8, dtype=np.uint8)),
+        torch.as_tensor(rng.integers(0, 256, 16, dtype=np.uint8))).numpy()
+    for r in range(0, 70000, 7):
+        pos = 600 + r % 90
+        x[r, pos:] += f[:n - pos]
+    x = torch.as_tensor(x).to(cuda)
+    n_out = n - (ofdm.NUM_S0 * M - M // 4) - M // 4 + 1
+    _check_b2(x, M, T=n_out - 2 * M, k=4)     # 25 segments a row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lag,span,win", B2_ANY)
+def test_b2_window_sums_take_any_geometry(cuda, lag, span, win):
+    """B2's window-sum path at the geometries that its one-pass kernel
+    refuses with a span or an NMS window shorter than a segment
+    (``tests/test_torch_kernel_paths.py``'s ``B2_ANY`` and its rows:
+    segments across up to 22 tiles, win from 0 to 40): against
+    ``b2_segment_plain`` (the plain version itself where win >= 64) at
+    ``_check_b2``'s limits, offsets equal on the constant row."""
+    x, args = b2_any_case(lag, span, win)
+    x = torch.as_tensor(x)
+    kernels.reset_launch_counts()
+    v, loc, c = (t.cpu() for t in kernels.detect_candidates_onepass(
+        x.to(cuda), *args))
+    vr, lr = b2_segment_plain(x.numpy(), *args)
+    _, c_full = kernels.autocorr_metric(x, lag, span)
+    det = v > 0
+    assert torch.equal(det, vr > 0) and bool(det.any())
+    assert float((v - vr).abs().max()) <= 1e-4
+    for row in range(x.shape[0]):
+        a, b = np.sort(loc[row][det[row]]), np.sort(lr[row][det[row]])
+        assert np.abs(a.astype(np.int64) - b).max(initial=0) <= (
+            0 if row == 2 else 3)
+    c_ref = torch.gather(c_full, -1, loc.to(torch.int64))[det]
+    assert float(((c[det] - c_ref).abs() / c_ref.abs()).max()) <= 1e-4
+    assert kernels.cand_paths == {"m48": 0, "one_pass": 0, "window_sums": 1}
+
+
 # --- every OFDM size the JAX package takes (B1-B3 at large M) -------------
 
 def _large_rows(M, rows, seed, loud=False):
@@ -340,13 +409,18 @@ def _large_rows(M, rows, seed, loud=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [400, 472, 476, 512, 560, 1024, 2048, 4096])
+@pytest.mark.parametrize("M", [400, 472, 476, 512, 560, 1024, 2048, 4096,
+                               8192])
 def test_b2_large_m_matches_plain(cuda, M):
-    """B2 past its one-block halo (M >= 476), where its three passes take
-    windows of any length; M = 512 also with a +40 dB burst; beside them
-    its one-pass kernel at 472, the largest M it takes, and 400, where the
-    last thread's window sums read chunk totals past the third plane."""
-    for loud in ((False, True) if M == 512 else (False,)):
+    """B2 past its one-block halo (M >= 476), where its window-sum path
+    takes windows of any length (one chunk a block up to 512, balanced
+    chunks from 516: two of 455 at 560); M = 512 and 4,096 also with a
+    +40 dB burst; beside them its one-pass kernel at 472, the largest M it
+    takes, and 400, where the last thread's window sums read chunk totals
+    past the third plane."""
+    assert kernels.candidates_path(M // 4, 7 * M // 4, M) == (
+        "window_sums" if M >= 476 else "one_pass")
+    for loud in ((False, True) if M in (512, 4096) else (False,)):
         x = _large_rows(M, 3, M, loud).to(cuda)
         n_out = x.shape[-1] - (ofdm.NUM_S0 * M - M // 4) - M // 4 + 1
         _check_b2(x, M, T=n_out - 2 * M)
