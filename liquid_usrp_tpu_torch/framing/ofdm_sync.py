@@ -37,6 +37,7 @@ from ..ops.corr import comb_rev_freq_np, find_candidates, next_pow2
 from ..ops.corr import topk_peaks  # noqa: F401  (JAX module surface)
 from ..utils.consts import on
 from ..utils.device import default_device
+from ..utils.profiling import count, span
 from . import payload as payload_codec
 from .ofdm import NUM_S0, OfdmParams, _pilot_values, header_symbol_count
 from .payload import (EXPANSION as _EXPANSION, HEADER_BPS as _HEADER_BPS,
@@ -534,30 +535,43 @@ def _gated_decode(sync: OfdmSync, tables: SyncTables, source: torch.Tensor,
     Returns the 12-tuple of per-candidate results, zeros when ``gate`` is
     False (nothing detected: the decode is skipped).  ``rows`` (bool
     ``[R]``): the candidates whose conv/RS payload decodes (default
-    all)."""
-    R = locs.shape[0]
-    dev = source.device
-    if not gate:
-        z = lambda dt, *s: torch.zeros((R, *s), dtype=dt, device=dev)  # noqa: E731
-        i32, f32 = torch.int32, torch.float32
-        return (z(torch.uint8, 8), z(torch.uint8, sync.max_payload),
-                z(i32), z(i32), z(i32), z(i32), z(i32), z(torch.bool),
-                z(torch.bool), z(f32), z(f32), z(f32))
-    win = _window_gather(source, row_of, locs, sync.overlap)
-    (user, points, plen, mod, f0, f1, check, hvalid, rssi, hevm,
-     cfo) = _decode_window(sync, tables, win, c_at)
-    decode_fn = (payload_codec.decode_payload_batch_soft if sync.soft
-                 else payload_codec.decode_payload_batch)
-    payload, pvalid = decode_fn(
-        sync.enc_max, sync.dec_max, sync.max_payload, points, mod, f0, f1,
-        check, plen, hvalid, sync.fecs, rows=rows)
-    used = payload_codec.payload_points_used(
-        sync.fecs, sync.dec_max, sync.enc_max, plen, mod, f0, f1, check)
-    evm = payload_codec.frame_evm_db(
-        hevm, payload_codec.payload_evm_mse(points, mod, used), used)
-    evm = torch.where(hvalid, evm, hevm)
-    return (user, payload, plen, mod, f0, f1, check, hvalid, pvalid, rssi,
-            evm, cfo)
+    all).  One ``rx.decode`` span, the payload codec's ``rx.codec``
+    inside it; counts ``rows_decoded``."""
+    with span("rx.decode"):
+        R = locs.shape[0]
+        dev = source.device
+        if not gate:
+            def z(dt, *s):
+                return torch.zeros((R, *s), dtype=dt, device=dev)
+            i32, f32 = torch.int32, torch.float32
+            return (z(torch.uint8, 8), z(torch.uint8, sync.max_payload),
+                    z(i32), z(i32), z(i32), z(i32), z(i32), z(torch.bool),
+                    z(torch.bool), z(f32), z(f32), z(f32))
+        count("rows_decoded", R)
+        win = _window_gather(source, row_of, locs, sync.overlap)
+        (user, points, plen, mod, f0, f1, check, hvalid, rssi, hevm,
+         cfo) = _decode_window(sync, tables, win, c_at)
+        decode_fn = (payload_codec.decode_payload_batch_soft if sync.soft
+                     else payload_codec.decode_payload_batch)
+        with span("rx.codec"):
+            payload, pvalid = decode_fn(
+                sync.enc_max, sync.dec_max, sync.max_payload, points, mod, f0,
+                f1, check, plen, hvalid, sync.fecs, rows=rows)
+        used = payload_codec.payload_points_used(
+            sync.fecs, sync.dec_max, sync.enc_max, plen, mod, f0, f1, check)
+        evm = payload_codec.frame_evm_db(
+            hevm, payload_codec.payload_evm_mse(points, mod, used), used)
+        evm = torch.where(hvalid, evm, hevm)
+        return (user, payload, plen, mod, f0, f1, check, hvalid, pvalid, rssi,
+                evm, cfo)
+
+
+def _detected_rows(detected: torch.Tensor) -> int:
+    """The detected candidates, counted on the host from one copy of the
+    mask: the decode gate's one wait (counts ``rows_detected``)."""
+    n = int(np.count_nonzero(detected.cpu().numpy()))
+    count("rows_detected", n)
+    return n
 
 
 def _results(detected, locs, base_t, decoded, shape) -> FrameResults:
@@ -591,14 +605,16 @@ def sync_block(sync: OfdmSync, state: OfdmSyncState, block: torch.Tensor,
                          f"{sync.block_size}")
     tables = tables if tables is not None else sync_tables(sync,
                                                            block.device)
-    ext = torch.cat([state.tail, block])[None]
-    detected, locs, c_at = _detect_candidates(sync, ext, tables)
+    with span("rx.detect"):
+        ext = torch.cat([state.tail, block])[None]
+        detected, locs, c_at = _detect_candidates(sync, ext, tables)
+        gate = _detected_rows(detected) > 0
     K = sync.max_frames
     row_of = torch.zeros(K, dtype=torch.int64, device=block.device)
-    decoded = _gated_decode(sync, tables, ext, bool(detected.any()),
-                            locs.reshape(-1), c_at.reshape(-1), row_of,
-                            detected.reshape(-1))
-    res = _results(detected, locs, state.base, decoded, (K,))
+    decoded = _gated_decode(sync, tables, ext, gate, locs.reshape(-1),
+                            c_at.reshape(-1), row_of, detected.reshape(-1))
+    with span("rx.results"):
+        res = _results(detected, locs, state.base, decoded, (K,))
     new_state = OfdmSyncState(tail=ext[0, ext.shape[-1] - sync.overlap:],
                               base=state.base + sync.block_size)
     return new_state, res
@@ -659,17 +675,19 @@ def sync_channels_batched(sync: OfdmSync, states: OfdmSyncState,
     tables = tables if tables is not None else sync_tables(sync,
                                                            chans.device)
     K = sync.max_frames
-    full, exts = extended_windows(sync, states.tail, chans)
-    detected, locs, c_at = _detect_candidates(sync, exts, tables)
+    with span("rx.detect"):
+        full, exts = extended_windows(sync, states.tail, chans)
+        detected, locs, c_at = _detect_candidates(sync, exts, tables)
+        gate = _detected_rows(detected) > 0
     row_of = torch.arange(N * n_blocks, device=chans.device
                           ).repeat_interleave(K)
-    decoded = _gated_decode(sync, tables, exts, bool(detected.any()),
-                            locs.reshape(-1), c_at.reshape(-1), row_of,
-                            detected.reshape(-1))
-    base_t = states.base[:, None, None] + \
-        (torch.arange(n_blocks, device=chans.device, dtype=torch.int32)
-         * bs)[None, :, None]
-    res = _results(detected, locs, base_t, decoded, (N, n_blocks, K))
+    decoded = _gated_decode(sync, tables, exts, gate, locs.reshape(-1),
+                            c_at.reshape(-1), row_of, detected.reshape(-1))
+    with span("rx.results"):
+        base_t = states.base[:, None, None] + \
+            (torch.arange(n_blocks, device=chans.device, dtype=torch.int32)
+             * bs)[None, :, None]
+        res = _results(detected, locs, base_t, decoded, (N, n_blocks, K))
     new_states = OfdmSyncState(
         tail=full[:, full.shape[-1] - sync.overlap:],
         base=states.base + n_blocks * bs)

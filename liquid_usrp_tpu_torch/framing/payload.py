@@ -36,6 +36,7 @@ from ..ops import fec as fec_mod
 from ..ops import modem as modem_mod
 from ..utils.bits import pack_bits, unpack_bits
 from ..utils.consts import on
+from ..utils.profiling import count
 
 __all__ = [
     "PAYLOAD_FECS", "PAYLOAD_FECS_FULL", "PAYLOAD_MODS", "EXPANSION",
@@ -288,8 +289,10 @@ def _nearest_sym(x: torch.Tensor, table: torch.Tensor):
     against per-row tables ``table [K, C]`` -> (int64 ``[K, n]``, float32
     ``[K, n]``).  Distances are ``(xr-tr)**2 + (xi-ti)**2`` in float32;
     chunks of 16 entries, ascending, first minimum on ties (``argmin``
-    within a chunk, strict ``<`` across chunks) — the JAX decision rule."""
+    within a chunk, strict ``<`` across chunks) — the JAX decision rule.
+    Counts the (point, entry) pairs compared as ``nearest_entries``."""
     C = table.shape[-1]
+    count("nearest_entries", x.numel() * C)
     xr, xi = x.real[..., None], x.imag[..., None]
     tr, ti = table.real[..., None, :], table.imag[..., None, :]
     best = torch.full(x.shape, 1e30, dtype=torch.float32, device=x.device)
@@ -370,11 +373,13 @@ def generic_demod_soft(x: torch.Tensor, mod: torch.Tensor, max_bits: int,
     flexframe dispatch (32 x 52,533 points) would be 13.8 GB.  Padding
     entries sit at ``1e6+0j`` and a bit with no candidate reads 1e12, as in
     JAX, so the padded LLR slots equal JAX's.  ``n_table`` truncates the
-    table (exact whenever the scheme fits)."""
+    table (exact whenever the scheme fits).  Counts the (point, entry)
+    pairs compared as ``nearest_entries``."""
     x, off = _diff_effective(x, mod)
     m = mod.to(torch.int64)
     dev = x.device
     table = on(_stacked_tables(), dev)[m][..., :n_table]          # [K, C]
+    count("nearest_entries", x.numel() * table.shape[-1])
     is1 = on(_bit_masks(), dev)[m][..., :n_table, :] > 0.5       # [K, C, 8]
     xr, xi = x.real[..., None], x.imag[..., None]
     inf = torch.tensor(_SOFT_INF, dtype=torch.float32, device=dev)

@@ -18,6 +18,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["BlockPrefetcher", "run_pipelined", "AsyncTxProducer"]
 
 
@@ -84,7 +86,9 @@ def run_pipelined(source: Iterable[np.ndarray], step: Callable, state,
     ...]`` int8, int16 or bfloat16, NumPy or host tensors) keep their dtype
     so that ``iq_from_any`` dequantizes them.  ``on_results`` receives
     each step's results after the next step has been launched, so the
-    host reads step k's results while the card runs step k+1."""
+    host reads step k's results while the card runs step k+1.  Spans:
+    ``rx.ingest`` for each block's staging, ``rx.deliver`` for each
+    ``on_results`` call (the k-th holds the k-th step's results)."""
     def rechunk(it):
         if block_size is None:
             yield from it
@@ -103,22 +107,27 @@ def run_pipelined(source: Iterable[np.ndarray], step: Callable, state,
 
     def stage(blk):
         # an asynchronous copy from pinned memory: no sync here
-        t = blk if isinstance(blk, torch.Tensor) else torch.as_tensor(
-            np.asarray(blk))
-        if t.is_complex():
-            t = t.to(torch.complex64)
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
+        with span("rx.ingest"):
+            t = blk if isinstance(blk, torch.Tensor) else torch.as_tensor(
+                np.asarray(blk))
+            if t.is_complex():
+                t = t.to(torch.complex64)
+            if device.type == "cuda":
+                return t.pin_memory().to(device, non_blocking=True)
+            return t.to(device)
+
+    def deliver(results):
+        with span("rx.deliver"):
+            on_results(results)
 
     pending = None
     for blk in rechunk(BlockPrefetcher(source, depth)):
         state, results = step(state, stage(blk))
         if pending is not None and on_results is not None:
-            on_results(pending)      # the previous step's, while this runs
+            deliver(pending)         # the previous step's, while this runs
         pending = results
     if pending is not None and on_results is not None:
-        on_results(pending)
+        deliver(pending)
     return state
 
 

@@ -32,6 +32,7 @@ from ..ops import iqfmt
 from ..ops import nco as nco_mod
 from ..ops import pfb as pfb_mod
 from ..utils.device import default_device
+from ..utils.profiling import span
 
 __all__ = ["MultichannelTx", "MultichannelRx", "MultichannelTxRx", "Mcrx",
            "McrxState",
@@ -318,21 +319,24 @@ class Mcrx(torch.nn.Module):
         chans [N, n_blocks, block_size])``."""
         N = self.num_channels
         nb = 1 if self.n_blocks is None else self.n_blocks
-        nco_state, y = nco_mod.nco_mix_block(
-            state.nco, iqfmt.iq_from_any(x.to(self.device)), up=True)
-        chz_state, X = pfb_mod.pfb_analyze_block(self.chz, state.chz, y,
-                                                 self.h_pol)
-        chans = X[:, :N].T.reshape(N, nb, self.sync.block_size)
+        with span("rx.front_end"):
+            nco_state, y = nco_mod.nco_mix_block(
+                state.nco, iqfmt.iq_from_any(x.to(self.device)), up=True)
+            chz_state, X = pfb_mod.pfb_analyze_block(self.chz, state.chz, y,
+                                                     self.h_pol)
+            chans = X[:, :N].T.reshape(N, nb, self.sync.block_size)
         return nco_state, chz_state, chans
 
     def step(self, state: McrxState, x: torch.Tensor):
         """``x``: complex64 ``[2N * block_size * n_blocks]`` or IQ planes
-        ``[2, ...]`` -> ``(state', FrameResults)``."""
-        nco_state, chz_state, chans = self.front_end(state, x)
-        sync_states, res = ofdm_sync.sync_channels_batched(
-            self.sync, state.syncs, chans, self.tables)
-        if self.n_blocks is None:
-            res = ofdm_sync.FrameResults(*(v[:, 0] for v in res))
+        ``[2, ...]`` -> ``(state', FrameResults)``: one ``rx.dispatch``
+        span."""
+        with span("rx.dispatch"):
+            nco_state, chz_state, chans = self.front_end(state, x)
+            sync_states, res = ofdm_sync.sync_channels_batched(
+                self.sync, state.syncs, chans, self.tables)
+            if self.n_blocks is None:
+                res = ofdm_sync.FrameResults(*(v[:, 0] for v in res))
         return McrxState(nco=nco_state, chz=chz_state,
                          syncs=sync_states), res
 

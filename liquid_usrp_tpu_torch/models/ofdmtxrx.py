@@ -28,6 +28,7 @@ from ..framing import payload as payload_codec
 from ..ops import fec as fec_mod
 from ..ops import modem as modem_mod
 from ..utils.device import default_device
+from ..utils.profiling import span
 
 __all__ = ["OfdmTxRx", "RadioConfig"]
 
@@ -282,13 +283,17 @@ class OfdmTxRx:
 
     def _to_device(self, arr: np.ndarray, shape: tuple) -> torch.Tensor:
         """Host complex64 samples -> the ingest format on the device, in
-        the block layout ``shape`` (planes lead with ``[2]``)."""
-        if self.rx_ingest == "c64":
-            return torch.as_tensor(arr.reshape(shape), device=self.device)
-        from ..io.native import cf32_to_bf16_planes, cf32_to_sc8_planes
-        conv = (cf32_to_bf16_planes if self.rx_ingest == "bf16"
-                else cf32_to_sc8_planes)
-        return conv(arr.reshape(-1)).reshape((2,) + shape).to(self.device)
+        the block layout ``shape`` (planes lead with ``[2]``): one
+        ``rx.ingest`` span."""
+        with span("rx.ingest"):
+            if self.rx_ingest == "c64":
+                return torch.as_tensor(arr.reshape(shape),
+                                       device=self.device)
+            from ..io.native import cf32_to_bf16_planes, cf32_to_sc8_planes
+            conv = (cf32_to_bf16_planes if self.rx_ingest == "bf16"
+                    else cf32_to_sc8_planes)
+            return conv(arr.reshape(-1)).reshape((2,) + shape).to(
+                self.device)
 
     def _transform(self, blk: np.ndarray) -> np.ndarray:
         return self.rx_transform(torch.as_tensor(
@@ -298,7 +303,9 @@ class OfdmTxRx:
         """Feed IQ samples through the synchronizer; returns decoded frames
         (also delivered to the callback).  Samples short of a block carry
         to the next call; ``flush`` pads zeros until the carried overlap
-        has drained."""
+        has drained.  Each dispatch (a batched chunk or a single block)
+        is one ``rx.dispatch`` span: its upload, synchronizer and results
+        with the host copy."""
         if not self._rx_running:
             return []
         bs = self._sync.block_size
@@ -319,23 +326,26 @@ class OfdmTxRx:
                 chunk = samples[b * bs:(b + nb) * bs].reshape(nb, bs)
                 if self.rx_transform is not None:
                     chunk = np.stack([self._transform(row) for row in chunk])
-                self._rx_state, res = ofdm_sync.sync_blocks_batched(
-                    self._sync, self._rx_state,
-                    self._to_device(chunk, (nb, bs)))
-                res_np = _to_host(res)
-                for j in range(nb):
-                    self._emit_rows(
-                        ofdm_sync.FrameResults(*(f[j] for f in res_np)),
-                        frames)
+                with span("rx.dispatch"):
+                    self._rx_state, res = ofdm_sync.sync_blocks_batched(
+                        self._sync, self._rx_state,
+                        self._to_device(chunk, (nb, bs)))
+                    with span("rx.results"):
+                        res_np = _to_host(res)
+                        for j in range(nb):
+                            self._emit_rows(ofdm_sync.FrameResults(
+                                *(f[j] for f in res_np)), frames)
                 last_block = chunk[-1]
                 b += nb
             else:
                 blk = samples[b * bs:(b + 1) * bs]
                 if self.rx_transform is not None:
                     blk = self._transform(blk)
-                self._rx_state, res = self._step(self._rx_state,
-                                                 self._to_device(blk, (bs,)))
-                self._emit_rows(_to_host(res), frames)
+                with span("rx.dispatch"):
+                    self._rx_state, res = self._step(
+                        self._rx_state, self._to_device(blk, (bs,)))
+                    with span("rx.results"):
+                        self._emit_rows(_to_host(res), frames)
                 last_block = blk
                 b += 1
         if self._debug and last_block is not None:

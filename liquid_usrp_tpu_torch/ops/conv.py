@@ -40,6 +40,7 @@ import torch
 
 from ..utils.bits import pack_bits, unpack_bits
 from ..utils.consts import on
+from ..utils.profiling import count
 
 __all__ = ["encoded_length", "conv_encode", "conv_decode",
            "conv_decode_soft"]
@@ -219,11 +220,13 @@ def _depuncture(scheme: int, vals: torch.Tensor, nbits: int, R: int):
 def _viterbi(scheme: int, bm_pat: torch.Tensor, big: int) -> torch.Tensor:
     """Terminated-trellis Viterbi over rows: ``bm_pat [B, T, 2^R]`` int32
     branch costs per output pattern (lower is better) -> decoded bits
-    ``[B, T]`` uint8 (the last K-1 are the flush zeros)."""
+    ``[B, T]`` uint8 (the last K-1 are the flush zeros).  Counts the
+    ``T`` sequential steps as ``viterbi_steps``."""
     pid_np, _, base_np = _trellis(scheme)
     S = base_np.shape[0]
     K = int(np.log2(S)) + 1
     B, T, _ = bm_pat.shape
+    count("viterbi_steps", T)
     dev = bm_pat.device
     pid = on(pid_np, dev)
     # path metrics and the candidates in fixed buffers, with every view the

@@ -14,10 +14,11 @@ resampled at 0.5 as ``flexframe_rx`` does), and measures:
   the HBM rate or its float32 operations over the float32 peak, as
   ``chip_smoke.py`` counts them) with the share of it the kernel reaches;
 * per detect level (``use_pallas`` 0, 1, 2) of the multichannel path: the
-  time of each stage (front end, detect, candidate decode; CUDA events with
-  a sync between them), the step wall time, the device busy time and its
-  share of the wall, device kernels per step, peak device memory and the
-  top device kernels;
+  host self time a step of each stage's span in the profiled steps
+  (``rx.front_end``, ``rx.detect``, ``rx.decode`` less its ``rx.codec``,
+  and ``rx.codec``; ``rxbench/spans.py``), the step wall time, the device
+  busy time and its share of the wall, device kernels per step, peak
+  device memory and the top device kernels;
 * per detect config of the single-channel path: the same for one 8-block
   ``sync_blocks_batched`` dispatch with its results copied to the host;
 * for the flexframe receiver: the same for one 8-block
@@ -78,14 +79,30 @@ def _event():
     return e
 
 
-def _profile(fn, n: int):
+def _traced(fn, n: int):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return _device_events(prof)
+    return prof
+
+
+def _profile(fn, n: int):
+    return _device_events(_traced(fn, n))
+
+
+def _stage_ms(prof, steps: int) -> dict:
+    """Host self time a step of each stage's ``rx.*`` span."""
+    from rxbench import spans
+    from rxbench.profiling import Op, Trace
+    host = [Op(e.name(), e.start_ns() * 1e-3, e.end_ns() * 1e-3)
+            for e in prof.profiler.kineto_results.events()
+            if e.name().startswith(spans.PREFIX)]
+    trace = Trace(0.0, 0.0, steps, [], host)
+    return {stage: spans.self_ms_per_dispatch(trace, "rx." + stage)
+            for stage in ("front_end", "detect", "decode", "codec")}
 
 
 def profile_kernels(s1, blocks, dev):
@@ -167,8 +184,7 @@ def _profile_calls(calls, work):
     return out
 
 
-def profile_level(level, params, blocks, dev, stage_steps=6, wall_steps=5,
-                  prof_steps=3):
+def profile_level(level, params, blocks, dev, wall_steps=5, prof_steps=3):
     """Stage times, wall time, busy share and top kernels at one level."""
     from liquid_usrp_tpu_torch.framing import ofdm_sync
     from liquid_usrp_tpu_torch.models.multichannel import Mcrx
@@ -179,25 +195,6 @@ def profile_level(level, params, blocks, dev, stage_steps=6, wall_steps=5,
     st = rx.init_state()
     for _ in range(2):
         st, _ = rx.step(st, blocks)
-    stages = {"front_end": 0.0, "detect": 0.0, "decode": 0.0}
-    for _ in range(stage_steps):
-        torch.cuda.synchronize()
-        e0 = _event()
-        _, _, ch = rx.front_end(st, blocks)
-        e1 = _event()
-        _, ex = ofdm_sync.extended_windows(sync, st.syncs.tail, ch)
-        det, locs, c_at = ofdm_sync._detect_candidates(sync, ex, rx.tables)
-        e2 = _event()
-        row_of = torch.arange(ex.shape[0], device=dev).repeat_interleave(
-            sync.max_frames)
-        ofdm_sync._gated_decode(sync, rx.tables, ex, bool(det.any()),
-                                locs.reshape(-1), c_at.reshape(-1), row_of,
-                                det.reshape(-1))
-        e3 = _event()
-        torch.cuda.synchronize()
-        stages["front_end"] += e0.elapsed_time(e1) / stage_steps
-        stages["detect"] += e1.elapsed_time(e2) / stage_steps
-        stages["decode"] += e2.elapsed_time(e3) / stage_steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -211,10 +208,11 @@ def profile_level(level, params, blocks, dev, stage_steps=6, wall_steps=5,
     def one():
         state[0], _ = rx.step(state[0], blocks)
 
-    kev = _profile(one, prof_steps)
+    prof = _traced(one, prof_steps)
+    kev = _device_events(prof)
     busy_ms = sum(_device_us(e) for e in kev) / prof_steps / 1e3
     top = sorted(kev, key=_device_us, reverse=True)[:8]
-    rec = dict(stage_ms=stages, step_wall_ms=wall_ms,
+    rec = dict(stage_ms=_stage_ms(prof, prof_steps), step_wall_ms=wall_ms,
                device_busy_ms_per_step=busy_ms,
                busy_share_of_wall=busy_ms / wall_ms,
                kernels_per_step=sum(e.count for e in kev) / prof_steps,
