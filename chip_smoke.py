@@ -30,7 +30,12 @@ parallel layer (``parallel/``: worlds of ranks that share the card):
    single-channel path's first dispatch (B3 vs ``autocorr_metric``: metric
    <= 1e-4, ``c`` within 1e-4 of max ``|c|``; B4/B5 vs
    ``autocorr_metric_prefix``: metric <= 1e-5, ``c`` within 1e-5 of max
-   ``|c|``);
+   ``|c|``); and the payload codec's Viterbi kernel (``csrc/viterbi.cu``)
+   at the ``ofdm1_conv.v27`` cell's shape (10 rows of v27 hard costs over
+   the 2,052-byte budget, 16,422 steps, at 2 % bit errors, the last row a
+   third erased): every bit equal to the plain version's, the 9 unerased
+   rows decoded, its device time beside the bytes' bound and the time a
+   step of its chain takes;
 4. the multichannel path at N=4, M=48, cp=6, taper=4, 400-byte payloads,
    ``block_size=65536``, ``n_blocks=2``, ``max_frames=24``,
    ``max_payload=512`` for detect levels ``use_pallas`` 0, 1 and 2, on a
@@ -120,7 +125,15 @@ parallel layer (``parallel/``: worlds of ranks that share the card):
    ``ofdmflexframe_rx --conv -p 512`` and ``flexframe_tx -c v27 -k none``
    (10 frames of 100 bytes) -> ``flexframe_rx --conv -p 256``: every frame
    valid; the Viterbi's ms per dispatch (the ``fec0`` stage of the timed
-   GMSK ``--conv`` dispatch, v27 over its header-valid rows);
+   GMSK ``--conv`` dispatch, v27 over its header-valid rows); the
+   ``ofdm1_conv.v27`` cell's receiver (``OfdmTxRx(enable_conv=True)`` at
+   its defaults) over ``ofdmflexframe_tx -c v27 -k none`` (20 frames of
+   1200 bytes), one 8-block dispatch a ``run_rx`` call, from a reset of
+   the launch counts and with the counters on: every frame valid, the
+   Viterbi kernel launched once in each dispatch that decodes a frame
+   (``kernels.launches`` and ``viterbi_launches``), each launch over the
+   2,052-byte budget's 16,422 steps (``viterbi_steps``), and no B1-B5
+   kernel but B1 (that run's count is the kernels line's ``launches``);
 19. GMSK times (CUDA events, after a warm-up): decode-verified samples/s
    over the whole stream and ms per 8-block dispatch, without and with
    ``--conv``.  B1-B5 launch on none of the runs of 16-18 but the OFDM
@@ -253,6 +266,10 @@ parallel layer (``parallel/``: worlds of ranks that share the card):
    and ``multichannel_rx -M 1028`` 6/6 valid on their TX's files.  Its
    launches count toward B4/B5's zero check, not the kernels line.
 
+Launch checks about B1-B5 read those five counts; the Viterbi kernel
+launches on every conv decode (phases 18-21, 23, 28) and its launches over
+the runs are summed on the kernels line.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
 script exits non-zero without that line; so does a machine without CUDA.
@@ -310,6 +327,17 @@ KERNELS = {
         replaces="liquid_usrp_tpu/ops/pallas_kernels.py:332",
         kernel="autocorr_prefix_kernel"),
 }
+# the payload codec's Viterbi: its source note, and the ofdm1_conv.v27
+# cell's shape (v27 rows a dispatch, bytes of the budget)
+VITERBI = dict(
+    source="liquid_usrp_tpu_torch/csrc/viterbi.cu", replaces=None,
+    note="replaces no Pallas kernel: the JAX package's lax.scan "
+         "(liquid_usrp_tpu/ops/conv.py:187-205), whose eager form launched "
+         "about 66,000 kernels a --conv dispatch; bound by the chain of T "
+         "dependent trellis steps, not by bytes or operations",
+    kernel="viterbi_warp_kernel")
+VIT_ROWS, VIT_BYTES = 10, 2052
+V27_FRAMES = 20                # frames of the cell's receiver run
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores, at a 700 W limit
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -739,6 +767,46 @@ def check_kernels(sync, rx, blocks):
             kernels.detect_candidates_plain, b2_args, b2_err,
             work("detect_candidates_onepass", rows, length, span=L, lag=d),
             exts.shape)}
+
+
+def check_viterbi_kernel(dev):
+    """The Viterbi kernel against its plain version on the card at the
+    ``ofdm1_conv.v27`` cell's shape: ``VIT_ROWS`` words of v27 over
+    ``VIT_BYTES`` at 2 % bit errors, the last with a third of its steps
+    erased; every bit of every step equal.  Bound: the costs read and the
+    bits written once over the HBM rate; the chain of T steps is the real
+    limit, so the line also gives the device ns a step."""
+    from liquid_usrp_tpu_torch.ops import conv, fec
+    from liquid_usrp_tpu_torch.utils.bits import pack_bits
+    s = fec.FEC_CONV_V27
+    rng = np.random.default_rng(0x7E5B)
+    data = rng.integers(0, 256, (VIT_ROWS, VIT_BYTES), dtype=np.uint8)
+    bits = np.unpackbits(fec.fec_encode(s, torch.as_tensor(data)).numpy(),
+                         axis=-1)
+    noisy = np.packbits(bits ^ (rng.random(bits.shape) < 0.02), axis=-1)
+    costs = conv._hard_costs(s, torch.as_tensor(noisy, device=dev),
+                             VIT_BYTES)
+    B, T, P = costs.shape
+    costs[-1, T // 3:2 * T // 3] = 0
+    args = (s, costs, conv.BIG_HARD)
+    got = conv._viterbi(*args)
+    if not torch.equal(got, conv._viterbi_plain(*args)):
+        raise AssertionError("the Viterbi kernel differs from its plain "
+                             "version")
+    ok = (pack_bits(got[:, :VIT_BYTES * 8]).cpu().numpy() == data).all(-1)
+    if not ok[:-1].all():
+        raise AssertionError(f"the Viterbi left unerased rows at 2 % bit "
+                             f"errors undecoded: {ok.tolist()}")
+    print(f"viterbi: {tuple(costs.shape)} costs, every bit equal to the "
+          f"plain version's; rows decoded {ok.tolist()} (the last, a third "
+          f"erased, need not)", flush=True)
+    t = timed("viterbi", conv._viterbi, conv._viterbi_plain, args, 0,
+              (costs.numel() * 4 + B * T, 0), costs.shape,
+              kernel=VITERBI["kernel"], plain_iters=2)
+    print(f"viterbi: {t['kernel_ms'] * 1e6 / T:.1f} ns of device time a "
+          f"trellis step ({T} steps, {B} rows in parallel): the chain, not "
+          f"the bytes, bounds it", flush=True)
+    return t
 
 
 def timed(name, fn, plain, args, err, nbytes_flops, shape, label=None,
@@ -1792,6 +1860,70 @@ def run_ofdm_conv(tmpdir):
     if kernels.launches["detect_metric_xcorr_onepass"] <= 0:
         raise AssertionError("ofdmflexframe_rx --conv did not launch B1")
     return dict(kernels.launches)
+
+
+def run_ofdm_v27(tmpdir):
+    """The ``ofdm1_conv.v27`` cell's receiver (``OfdmTxRx`` at its defaults
+    with ``--conv``: M=48, 8-block dispatches, the 2,048-byte budget at
+    expansion 3, so that a v27 row decodes a trellis of ``VIT_BYTES``)
+    over ``V27_FRAMES`` frames of ``ofdmflexframe_tx -c v27 -k none``, fed
+    one dispatch a ``run_rx`` call, with the launch counts reset just
+    before and the counters on (phase 18).  Every frame must come back
+    valid; the Viterbi kernel must launch once in each dispatch that
+    decodes a frame, over ``VIT_BYTES * 8 + 6`` steps each, and no B1-B5
+    kernel but B1 may launch.  Returns the run's launch counts."""
+    from liquid_usrp_tpu_torch.apps import ofdmflexframe_tx
+    from liquid_usrp_tpu_torch.io.streams import read_iq
+    from liquid_usrp_tpu_torch.models.ofdmtxrx import OfdmTxRx
+    from liquid_usrp_tpu_torch.ops import kernels
+    from liquid_usrp_tpu_torch.utils import profiling
+    path = str(Path(tmpdir) / "ofdm_v27.iq")
+    run_app(ofdmflexframe_tx.main, ["-o", path, "-N", str(V27_FRAMES),
+                                    "-c", "v27", "-k", "none"])
+    stream = read_iq(path)
+    txrx = OfdmTxRx(enable_conv=True)
+    txrx.start_rx()
+    bs, nb = txrx._sync.block_size, txrx._batch_blocks
+    # zeros after the stream until the carried overlap has drained (as
+    # run_rx's flush pads), to whole dispatches
+    blocks = -(-len(stream) // bs) + 1 + txrx._sync.overlap // bs + 1
+    chunks = np.zeros((-(-blocks // nb), nb * bs), np.complex64)
+    chunks.reshape(-1)[:len(stream)] = stream
+    log_dir = str(Path(tmpdir) / "ofdm_v27_trace")
+    kernels.reset_launch_counts()
+    with profiling.trace(log_dir):
+        per = [txrx.run_rx(chunk) for chunk in chunks]
+        torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    with open(Path(log_dir) / "counters.json") as f:
+        counters = json.load(f)
+    rows = [r for got in per for r in got]
+    pids = sorted((int(r["header"][0]) << 8) | int(r["header"][1])
+                  for r in rows)
+    if pids != list(range(V27_FRAMES)) or not all(
+            r["header_valid"] and r["payload_valid"] and
+            r["payload_len"] == 1200 for r in rows):
+        raise AssertionError(f"ofdm1_conv.v27 receiver: packet ids {pids}, "
+                             f"valid {[r['payload_valid'] for r in rows]}")
+    decoding = sum(1 for got in per if got)
+    want = dict(viterbi=decoding, viterbi_launches=decoding,
+                viterbi_steps=decoding * (VIT_BYTES * 8 + 6))
+    seen = dict(viterbi=launches["viterbi"],
+                viterbi_launches=counters.get("viterbi_launches", 0),
+                viterbi_steps=counters.get("viterbi_steps", 0))
+    if seen != want:
+        raise AssertionError(f"ofdm1_conv.v27 receiver: {seen} over "
+                             f"{len(per)} dispatches, {want} expected")
+    other = {k: launches[k] for k in KERNELS
+             if k != "detect_metric_xcorr_onepass" and launches[k]}
+    if other or launches["detect_metric_xcorr_onepass"] <= 0:
+        raise AssertionError(f"ofdm1_conv.v27 receiver launched {launches}")
+    print(f"ofdm1_conv.v27 receiver: {V27_FRAMES}/{V27_FRAMES} v27 frames "
+          f"valid over {len(per)} dispatches, {decoding} decoding a frame; "
+          f"the Viterbi kernel launched {launches['viterbi']} times "
+          f"({seen['viterbi_steps']} steps, the 2,052-byte budget each); "
+          f"B1-B5: {({k: launches[k] for k in KERNELS})}", flush=True)
+    return launches
 
 
 def llr_close(what, got, want, limit=SOFT_LLR_RTOL):
@@ -2969,7 +3101,8 @@ def single_loop(mix, sync, weights, expected, dev):
 def check_par_launches(what, runs, kernel):
     """Every rank launched ``kernel`` and no other kernel of B1-B5."""
     for rank, launched in enumerate(runs):
-        other = {k: v for k, v in launched.items() if k != kernel and v}
+        other = {k: v for k, v in launched.items()
+                 if k in KERNELS and k != kernel and v}
         if other or (kernel is not None and launched[kernel] <= 0):
             raise AssertionError(f"{what}, rank {rank}: launched "
                                  f"{launched}, expected {kernel} only")
@@ -3285,7 +3418,7 @@ def fid_profiled(bs, cfg, stream, noisy, snr, dev, kernel):
         counted = dict(kernels.launches)
         kernels.reset_launch_counts()
         if counted[kernel] != 1 or any(v for k, v in counted.items()
-                                       if k != kernel):
+                                       if k in KERNELS and k != kernel):
             raise AssertionError(
                 f"level {cfg.sync.use_pallas} at {snr} dB, dispatch "
                 f"{len(results)}: launched {counted}, expected {kernel} "
@@ -3352,7 +3485,7 @@ def run_fidelity(dev, label):
     def count(launches, level_kernel=None):
         runs.append(launches)
         other = {k: v for k, v in launches.items()
-                 if k != level_kernel and v}
+                 if k in KERNELS and k != level_kernel and v}
         if other:
             raise AssertionError(f"the sweep launched {other}")
         if level_kernel is not None:
@@ -3916,6 +4049,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     times = check_kernels(sync1, Mcrx(N, sync1, N_BLOCKS, dev), blocks)
+    times["viterbi"] = check_viterbi_kernel(dev)
 
     launches, step_ms, path_runs = {}, {}, []
     for level in (0, 1, 2):
@@ -3956,6 +4090,7 @@ def main() -> int:
         gm_runs = [run_gmsk(dev, tmpdir, label),
                    run_conv(dev, tmpdir, label)]
         ofdm_conv = run_ofdm_conv(tmpdir)
+        ofdm_v27 = run_ofdm_v27(tmpdir)
     # the GMSK path and the conv/RS layer run no kernel
     for name in KERNELS:
         n = sum(run[name] for run in gm_runs)
@@ -3965,7 +4100,7 @@ def main() -> int:
     print(f"GMSK and conv runs: B1-B5 launched 0 times "
           f"({', '.join(KERNELS)}); the OFDM --conv run, on the OFDM "
           f"path's detector: {ofdm_conv}", flush=True)
-    path_runs += gm_runs + [ofdm_conv]
+    path_runs += gm_runs + [ofdm_conv, ofdm_v27]
     with tempfile.TemporaryDirectory() as tmpdir:
         soft_ops, demap = soft_ops_vs_cpu(dev, tmpdir, label)
         soft_runs, soft_times = run_soft(dev, tmpdir, label)
@@ -3981,7 +4116,7 @@ def main() -> int:
                                  f"soft and A13 runs")
     for what, run in (("soft OFDM", soft_ofdm), ("duplex", duplex)):
         other = {k: v for k, v in run.items()
-                 if k != "detect_metric_xcorr_onepass" and v}
+                 if k in KERNELS and k != "detect_metric_xcorr_onepass" and v}
         if other:
             raise AssertionError(f"the {what} runs launched {other}")
     print(f"soft and A13 runs: B1-B5 launched 0 times; the soft OFDM run "
@@ -4013,7 +4148,7 @@ def main() -> int:
     # the streaming runs detect with B1 (and only B1); WLAN runs no kernel
     for what, run in stream_launch.items():
         other = {k: v for k, v in run.items()
-                 if k != "detect_metric_xcorr_onepass" and v}
+                 if k in KERNELS and k != "detect_metric_xcorr_onepass" and v}
         if other or run["detect_metric_xcorr_onepass"] <= 0:
             raise AssertionError(f"the {what} runs launched {run}")
     if any(wlan_launch.values()):
@@ -4046,11 +4181,15 @@ def main() -> int:
         for name, t in times.items()), flush=True)
     # ms: the wrapper; kernel_ms: the CUDA kernel alone on the device.  No
     # single PyTorch call computes any of these metrics: library_ms null.
+    vit = {k: v for k, v in VITERBI.items() if k != "kernel"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[name],
          **times[name], "library_ms": None}
-        for name, k in KERNELS.items()]}), flush=True)
+        for name, k in KERNELS.items()] + [
+        {"name": "viterbi", "route": "cuda", **vit,
+         "launches": ofdm_v27["viterbi"],
+         **times["viterbi"], "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

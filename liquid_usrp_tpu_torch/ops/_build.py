@@ -55,6 +55,10 @@ _SIGNATURES = {
     # cre, cim, cp, rows, len, lag, span, floors, n_out, metric, c, stream
     "autocorr_prefix_launch": ([_VP, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP,
                                 _VP, _VP], _I),
+    # bm, rows, T, S, P, pidw, big, scratch, bits, stream
+    "viterbi_launch": ([_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _VP], _I),
+    # rows, T, S, P -> scratch bytes
+    "viterbi_scratch": ([_I, _I, _I, _I], _LL),
 }
 
 _LIB: list = []

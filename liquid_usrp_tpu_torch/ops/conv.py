@@ -23,12 +23,18 @@ leading row axis where JAX ``vmap``s:
   three launches a step;
 * JAX subtracts the minimum path metric after every step; the decisions
   only depend on differences within a row, so the port subtracts it after
-  every chunk of at most 256 steps, exactly in int32 (the metrics grow by
-  at most 90 a step in between);
+  every 256 steps, exactly in int32 (the metrics grow by at most 90 a step
+  in between);
 * the traceback walks the stored decisions backwards, one gather a step
   (from each step's predecessor table, ``2s mod S + w`` as int64, built
   one chunk of steps at a time so that only the bool decisions are kept
   whole), every row at once.
+
+That loop (:func:`_viterbi_plain`) is the plain version.  On a CUDA tensor
+:func:`_viterbi` runs the whole trellis, add-compare-select and traceback,
+in one launch of the hand-written kernel ``csrc/viterbi.cu`` (S = 64, 256
+or 16,384 states; built by :mod:`._build`), counted in
+``kernels.launches["viterbi"]``; there is no fallback.
 """
 from __future__ import annotations
 
@@ -41,11 +47,15 @@ import torch
 from ..utils.bits import pack_bits, unpack_bits
 from ..utils.consts import on
 from ..utils.profiling import count
+from . import kernels
 
 __all__ = ["encoded_length", "conv_encode", "conv_decode",
            "conv_decode_soft"]
 
 _BM_ELEMS = 1 << 22         # branch-metric entries gathered per chunk
+# steps between two subtractions of each row's least path metric in the
+# plain version (the bits do not depend on it while int32 holds the sums)
+_RENORM = 256
 
 
 class _ConvCode(NamedTuple):
@@ -217,16 +227,63 @@ def _depuncture(scheme: int, vals: torch.Tensor, nbits: int, R: int):
             on(_keep_i32(scheme, total), dev).reshape(nbits, R))
 
 
+@functools.lru_cache(maxsize=None)
+def _butterflies(scheme: int) -> np.ndarray:
+    """The kernel's pattern ids: int32 ``[S/2]``, butterfly ``s'`` (the
+    predecessors ``2s'`` and ``2s'+1`` of the states ``s'`` and ``s'+S/2``)
+    holding ``pid[2s']``, ``pid[2s'+1]``, ``pid[2(s'+S/2)]`` and
+    ``pid[2(s'+S/2)+1]`` in its bytes 0-3."""
+    pid, _, _ = _trellis(scheme)
+    p = pid.reshape(2, -1, 2)                  # [h, s', w]
+    return (p[0, :, 0] | p[0, :, 1] << 8 | p[1, :, 0] << 16 |
+            p[1, :, 1] << 24).astype(np.int32)
+
+
 def _viterbi(scheme: int, bm_pat: torch.Tensor, big: int) -> torch.Tensor:
     """Terminated-trellis Viterbi over rows: ``bm_pat [B, T, 2^R]`` int32
-    branch costs per output pattern (lower is better) -> decoded bits
-    ``[B, T]`` uint8 (the last K-1 are the flush zeros).  Counts the
-    ``T`` sequential steps as ``viterbi_steps``."""
+    branch costs per output pattern (lower is better), every state but 0
+    starting at ``big`` -> decoded bits ``[B, T]`` uint8 (the last K-1 are
+    the flush zeros).  A CPU tensor runs :func:`_viterbi_plain`; a CUDA
+    tensor launches ``csrc/viterbi.cu`` (``bm_pat`` contiguous int32) or
+    raises.  Counts the ``T`` sequential steps as ``viterbi_steps`` and a
+    launch as ``viterbi_launches``."""
+    count("viterbi_steps", bm_pat.shape[1])
+    if bm_pat.device.type == "cpu":
+        return _viterbi_plain(scheme, bm_pat, big)
+    if bm_pat.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {bm_pat.device}")
+    if bm_pat.dtype != torch.int32:
+        raise TypeError(f"branch costs must be int32, got {bm_pat.dtype}")
+    if not bm_pat.is_contiguous():
+        raise ValueError("branch costs must be contiguous")
+    S = 1 << (_params(scheme).K - 1)
+    B, T, P = bm_pat.shape
+    if P != 1 << len(_params(scheme).polys):
+        raise ValueError(f"{P} output patterns for a rate-1/"
+                         f"{len(_params(scheme).polys)} code")
+    dev = bm_pat.device
+    bits = torch.empty((B, T), dtype=torch.uint8, device=dev)
+    if not B or not T:
+        return bits
+    geometry = dict(scheme=scheme, rows=B, steps=T, states=S)
+    scratch = kernels._scratch("viterbi_scratch", dev, geometry, B, T, S, P)
+    kernels._launch("viterbi_launch", bm_pat, geometry, bm_pat.data_ptr(),
+                    B, T, S, P, on(_butterflies(scheme), dev).data_ptr(),
+                    big, kernels._ptr(scratch), bits.data_ptr())
+    kernels.launches["viterbi"] += 1
+    count("viterbi_launches", 1)
+    return bits
+
+
+def _viterbi_plain(scheme: int, bm_pat: torch.Tensor, big: int
+                   ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`_viterbi`: the trellis as a loop of
+    eager steps, every row at once, renormalising every ``_RENORM``
+    steps."""
     pid_np, _, base_np = _trellis(scheme)
     S = base_np.shape[0]
     K = int(np.log2(S)) + 1
     B, T, _ = bm_pat.shape
-    count("viterbi_steps", T)
     dev = bm_pat.device
     pid = on(pid_np, dev)
     # path metrics and the candidates in fixed buffers, with every view the
@@ -241,6 +298,7 @@ def _viterbi(scheme: int, bm_pat: torch.Tensor, big: int) -> torch.Tensor:
     choices = torch.empty((T, B, 2, S // 2), dtype=torch.bool, device=dev)
     chosen = choices.unbind(0)
     chunk = max(1, min(256, _BM_ELEMS // max(1, B * 2 * S)))
+    renorm = _RENORM
     for t0 in range(0, T, chunk):
         # both incoming branch costs of every state, per step: [B, 2, S/2, 2]
         bms = bm_pat[:, t0:t0 + chunk].index_select(-1, pid).reshape(
@@ -251,7 +309,8 @@ def _viterbi(scheme: int, bm_pat: torch.Tensor, big: int) -> torch.Tensor:
             torch.add(pm_in, bm, out=cand)
             torch.lt(c1, c0, out=chosen[t])
             torch.minimum(c0, c1, out=pm_out)
-        pm.sub_(pm.amin(-1, keepdim=True))
+            if (t + 1) % renorm == 0:
+                pm.sub_(pm.amin(-1, keepdim=True))
     # traceback from state 0: the state before step t is 2 s mod S + w,
     # one gather a step straight into the next step's index, from a
     # predecessor table built per chunk of steps (int64, so one chunk's)
@@ -272,24 +331,56 @@ def _rows(x: torch.Tensor):
     return x.reshape(-1, x.shape[-1]), x.shape[:-1]
 
 
+# the path metric every state but 0 starts at: hard and soft costs
+BIG_HARD, BIG_SOFT = 1 << 20, 1 << 24
+
+
+def _hard_costs(scheme: int, flat: torch.Tensor, n_bytes: int
+                ) -> torch.Tensor:
+    """Hard-decision branch costs ``[B, T, 2^R]`` int32 of coded rows
+    ``[B, n_coded]``: each pattern's Hamming distance to the received bits,
+    punctured positions counting 0."""
+    p = _params(scheme)
+    K, R = p.K, len(p.polys)
+    _, pats, _ = _trellis(scheme)
+    nbits = n_bytes * 8 + (K - 1)
+    rx, mask = _depuncture(scheme, unpack_bits(flat).to(torch.int32), nbits,
+                           R)
+    diff = (on(pats, flat.device) - rx[:, :, None, :]).abs()
+    if mask is not None:
+        diff = diff * mask[:, None, :]
+    return diff.sum(-1, dtype=torch.int32)
+
+
 def conv_decode(scheme: int, coded: torch.Tensor, n_bytes: int
                 ) -> torch.Tensor:
     """Hard-decision Viterbi decode ``[..., n_coded]`` -> uint8 ``[...,
     n_bytes]``.  Punctured positions are treated as erasures (zero branch
     metric)."""
+    flat, lead = _rows(coded)
+    bits = _viterbi(scheme, _hard_costs(scheme, flat, n_bytes), BIG_HARD)
+    return pack_bits(bits[:, :n_bytes * 8]).reshape(*lead, n_bytes)
+
+
+def _soft_costs(scheme: int, flat: torch.Tensor, n_bytes: int
+                ) -> torch.Tensor:
+    """Soft-decision branch costs ``[B, T, 2^R]`` int32 of LLR rows ``[B,
+    >= encoded_length * 8]`` (see :func:`conv_decode_soft`)."""
     p = _params(scheme)
     K, R = p.K, len(p.polys)
     _, pats, _ = _trellis(scheme)
-    flat, lead = _rows(coded)
-    dev = coded.device
     nbits = n_bytes * 8 + (K - 1)
-    rx, mask = _depuncture(scheme, unpack_bits(flat).to(torch.int32), nbits,
-                           R)
-    diff = (on(pats, dev) - rx[:, :, None, :]).abs()     # [B, T, 2^R, R]
-    if mask is not None:
-        diff = diff * mask[:, None, :]
-    bits = _viterbi(scheme, diff.sum(-1, dtype=torch.int32), 1 << 20)
-    return pack_bits(bits[:, :n_bytes * 8]).reshape(*lead, n_bytes)
+    nkept = len(_kept_index(scheme, R * nbits))
+    L = flat[:, :nkept].to(torch.float32)
+    absL = L.abs()
+    live = absL > 1e-6 * torch.clamp(absL.amax(-1, keepdim=True), min=1e-9)
+    mean_live = (absL * live).sum(-1, keepdim=True) / torch.clamp(
+        live.sum(-1, keepdim=True).to(torch.float32), min=1.0)
+    scale = 7.0 / torch.clamp(mean_live, min=1e-9)
+    q = torch.clamp(torch.round(L * scale), -15, 15).to(torch.int32)
+    rx, _ = _depuncture(scheme, q, nbits, R)
+    sgn = 1 - 2 * on(pats, flat.device)                   # [2^R, R]
+    return (sgn * rx[:, :, None, :]).sum(-1, dtype=torch.int32)
 
 
 def conv_decode_soft(scheme: int, llr_bits: torch.Tensor,
@@ -301,22 +392,6 @@ def conv_decode_soft(scheme: int, llr_bits: torch.Tensor,
     erasures).  Branch metric: correlation cost ``sum (1 - 2 e_j) *
     llr_j`` of LLRs quantized to 5-bit ints, scaled per row by the mean
     magnitude of its live entries (see the JAX docstring)."""
-    p = _params(scheme)
-    K, R = p.K, len(p.polys)
-    _, pats, _ = _trellis(scheme)
     flat, lead = _rows(llr_bits)
-    dev = llr_bits.device
-    nbits = n_bytes * 8 + (K - 1)
-    nkept = len(_kept_index(scheme, R * nbits))
-    L = flat[:, :nkept].to(torch.float32)
-    absL = L.abs()
-    live = absL > 1e-6 * torch.clamp(absL.amax(-1, keepdim=True), min=1e-9)
-    mean_live = (absL * live).sum(-1, keepdim=True) / torch.clamp(
-        live.sum(-1, keepdim=True).to(torch.float32), min=1.0)
-    scale = 7.0 / torch.clamp(mean_live, min=1e-9)
-    q = torch.clamp(torch.round(L * scale), -15, 15).to(torch.int32)
-    rx, _ = _depuncture(scheme, q, nbits, R)
-    sgn = 1 - 2 * on(pats, dev)                           # [2^R, R]
-    bm = (sgn * rx[:, :, None, :]).sum(-1, dtype=torch.int32)
-    bits = _viterbi(scheme, bm, 1 << 24)
+    bits = _viterbi(scheme, _soft_costs(scheme, flat, n_bytes), BIG_SOFT)
     return pack_bits(bits[:, :n_bytes * 8]).reshape(*lead, n_bytes)

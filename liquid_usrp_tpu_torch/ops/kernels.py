@@ -27,7 +27,8 @@ Port of the five kernels of ``liquid_usrp_tpu/ops/pallas_kernels.py``:
 Each wrapper dispatches by the device of its input: a CUDA tensor launches
 the kernel (built on first use by :mod:`._build`) or raises; a CPU tensor
 runs the kernel's plain PyTorch version beside it.  Nothing falls back.
-``launches`` counts kernel launches per wrapper (plain runs do not count).
+``launches`` counts kernel launches per wrapper (plain runs do not count),
+and also those of the payload codec's Viterbi kernel (``ops/conv.py``).
 
 Inputs carry any leading batch shape ``[..., len]``; each row is one
 extended detect window, as the JAX code vmaps over windows.
@@ -57,7 +58,8 @@ launches = {"detect_metric_xcorr_onepass": 0,
             "detect_candidates_onepass": 0,
             "detect_metric_onepass": 0,
             "detect_metric_fused_2d": 0,
-            "detect_metric_fused": 0}
+            "detect_metric_fused": 0,
+            "viterbi": 0}           # ops/conv.py::_viterbi, csrc/viterbi.cu
 
 
 # B1's launches by path (:func:`xcorr_path`), beside ``launches``
@@ -115,6 +117,8 @@ def _scratch(fn_name: str, device, geometry: dict, *args):
     or ``None`` where it needs none (the one-pass kernels); out of device
     memory, raises with ``geometry``."""
     nbytes = _scratch_bytes(fn_name, *args)
+    if nbytes < 0:
+        raise RuntimeError(f"{fn_name}: refused at {_where(geometry)}")
     if not nbytes:
         return None
     try:

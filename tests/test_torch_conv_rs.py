@@ -92,6 +92,23 @@ def test_conv_matches_jax(name):
     np.testing.assert_array_equal(got, ref)
 
 
+def test_conv_decode_at_the_payload_budget_matches_jax():
+    """v27 hard decode over the receiver's whole 2,052-byte budget (16,422
+    trellis steps) at 2 % bit errors: JAX's bytes, and every row decoded
+    (about 0.1 error events a row are expected at K=7)."""
+    s = tfec.FEC_CONV_V27
+    n = 2052
+    rng = _rng("v27 budget")
+    data = rng.integers(0, 256, (2, n), dtype=np.uint8)
+    enc = tfec.fec_encode(s, torch.as_tensor(data)).numpy()
+    noisy = _flip(enc, 0.02, rng)
+    got = tfec.fec_decode(s, torch.as_tensor(noisy), n).numpy()
+    ref = np.stack([np.asarray(jfec.fec_decode(s, jnp.asarray(w), n))
+                    for w in noisy])
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, data)
+
+
 def _loopback(sync, step, init, frames, rng):
     """The frames (at amplitude 0.5, 1500-sample gaps) in 0.02-rms noise
     through ``iter_sync_results``: the payload-valid (header, payload)

@@ -64,12 +64,22 @@ batched receiver's on the card in the detected/valid-masked fields
 (``rssi`` atol 1e-3 dB, ``evm`` 0.05 dB, ``cfo`` 1e-5), and both ranks
 launch B1 (the rank functions are in ``tests/torch_parallel_ranks.py``).
 
+The payload codec's Viterbi kernel (``csrc/viterbi.cu``) equals its plain
+version bit for bit on every trellis step: v27, v29, v39, v615, v27p34 and
+v29p78, hard and soft costs, rows at 3 % and 30 % bit errors (exact ties)
+and with erased runs, 1-70 rows of 6 to 16,422+ steps, the ``v27`` cell's
+10 x 16,422, decisions on chip and in the global scratch; every conv
+scheme's ``conv_decode``/``conv_decode_soft`` on the card equals the CPU's
+without the plain loop running.
+
 The soft decode path and the measurement ops run no kernel either: soft
 LLRs within 1e-6 of max |LLR| of the CPU's with equal signs beyond, Golay
 ML equal to the CPU except near-ties and unchanged at any float32 matmul
 precision, the soft payload decode equal on header-valid rows, AGC within
 a relative 1e-5, the spectrogram within 1e-3 dB, ring logs equal.
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -895,6 +905,129 @@ def test_wlan_viterbi_and_demap_cuda_match_cpu(cuda):
         got = wlan._demap_soft(pts.to(cuda), bpsc).cpu()
         assert float((got - want).abs().max()) <= \
             1e-6 * float(want.abs().max())
+
+
+# --- the payload codec's Viterbi kernel (csrc/viterbi.cu) ------------------
+
+VITERBI_SCHEMES = ("v27", "v29", "v39", "v615", "v27p34", "v29p78")
+# (rows, payload bytes): T = 8 n + K - 1 steps, from the shortest code to
+# the --conv receiver's 2,052-byte budget (16,422 steps at K = 7), mostly
+# not a multiple of 32 or 256; 10 x 2,052 is the ofdm1_conv.v27 cell's shape
+VITERBI_SHAPES = ((1, 0), (3, 37), (70, 125), (1, 2052), (10, 2052),
+                  (70, 2052))
+
+
+def viterbi_costs(name, soft, rows, n_bytes, device):
+    """Branch costs of ``rows`` encoded words on ``device`` and their
+    ``big``, by row: 3 % bit errors (LLRs at 4 plus unit noise), 30 % (LLRs
+    at 0.5: exact ties are frequent on hard bits), and 3 % with a run of a
+    third of the steps erased (every cost 0)."""
+    from liquid_usrp_tpu_torch.ops import conv, fec
+    s = fec.fec_from_name(name)
+    rng = np.random.default_rng(zlib.crc32(
+        f"viterbi {name} {soft} {rows} {n_bytes}".encode()))
+    data = rng.integers(0, 256, (rows, n_bytes), dtype=np.uint8)
+    bits = np.unpackbits(fec.fec_encode(s, torch.as_tensor(data)).numpy(),
+                         axis=-1)
+    weak = (np.arange(rows) % 3 == 1)[:, None]
+    if soft:
+        llr = (2.0 * bits - 1.0) * np.where(weak, 0.5, 4.0) + \
+            rng.normal(size=bits.shape)
+        costs = conv._soft_costs(s, torch.as_tensor(llr, dtype=torch.float32),
+                                 n_bytes)
+    else:
+        flips = rng.random(bits.shape) < np.where(weak, 0.3, 0.03)
+        costs = conv._hard_costs(
+            s, torch.as_tensor(np.packbits(bits ^ flips, axis=-1)), n_bytes)
+    T = costs.shape[1]
+    costs[2::3, T // 3:2 * T // 3] = 0
+    return s, costs.to(device), conv.BIG_SOFT if soft else conv.BIG_HARD
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("name", VITERBI_SCHEMES)
+def test_viterbi_kernel_matches_plain(cuda, name, soft):
+    """Every trellis step's bit equals the plain version's on the card, one
+    launch a call, at every shape of ``VITERBI_SHAPES`` (v615 up to 70
+    rows of 125 bytes and 1 of 2,052: its plain version keeps T x S bools
+    a row)."""
+    from liquid_usrp_tpu_torch.ops import conv
+    for rows, n_bytes in VITERBI_SHAPES:
+        if name == "v615" and rows * n_bytes > 2052:
+            continue
+        if (rows, n_bytes) == (10, 2052) and name != "v27":
+            continue
+        s, costs, big = viterbi_costs(name, soft, rows, n_bytes, cuda)
+        kernels.reset_launch_counts()
+        got = conv._viterbi(s, costs, big)
+        assert kernels.launches["viterbi"] == 1
+        want = conv._viterbi_plain(s, costs, big)
+        assert torch.equal(got, want), (rows, n_bytes)
+        assert kernels.launches["viterbi"] == 1
+
+
+@pytest.mark.gpu
+def test_viterbi_kernel_global_decisions_match_plain(cuda):
+    """Decisions past the shared memory go to the global scratch: 64 states
+    over 29,606 steps (231 KB of decisions) and 256 over the receiver's
+    budget; 256 states over 1,006 steps keep them on chip.  Each matches
+    the plain version."""
+    from liquid_usrp_tpu_torch.ops import conv
+    for name, rows, n_bytes, on_chip in (("v27", 3, 3700, False),
+                                         ("v29", 3, 2052, False),
+                                         ("v29", 3, 125, True)):
+        s, costs, big = viterbi_costs(name, False, rows, n_bytes, cuda)
+        B, T, P = costs.shape
+        S = 1 << (conv._params(s).K - 1)
+        nbytes = kernels._scratch_bytes("viterbi_scratch", B, T, S, P)
+        assert (nbytes == 0) == on_chip
+        if not on_chip:
+            assert nbytes == B * T * S // 8
+        assert torch.equal(conv._viterbi(s, costs, big),
+                           conv._viterbi_plain(s, costs, big)), name
+
+
+@pytest.mark.gpu
+def test_viterbi_kernel_refuses_and_never_runs_the_loop(cuda, monkeypatch):
+    """Non-int32, non-contiguous or mis-shaped costs raise; on the card
+    ``_viterbi`` never runs the plain loop; every conv scheme's
+    ``conv_decode`` and ``conv_decode_soft`` on the card equal the CPU's."""
+    from liquid_usrp_tpu_torch.ops import conv, fec
+    s, costs, big = viterbi_costs("v27", False, 3, 37, cuda)
+    with pytest.raises(TypeError):
+        conv._viterbi(s, costs.to(torch.int64), big)
+    with pytest.raises(ValueError):
+        conv._viterbi(s, costs[:, ::2], big)
+    with pytest.raises(ValueError):
+        conv._viterbi(s, costs[..., :2].contiguous(), big)
+
+    def loop(*args, **kw):
+        raise AssertionError("the plain loop ran on the card")
+    kernels.reset_launch_counts()
+    monkeypatch.setattr(conv, "_viterbi_plain", loop)
+    rng = np.random.default_rng(zlib.crc32(b"viterbi decode"))
+    cpu = {}
+    for name in fec.fec_names():
+        s = fec.fec_from_name(name)
+        if not fec._is_conv(s):
+            continue
+        data = rng.integers(0, 256, (3, 100), dtype=np.uint8)
+        bits = np.unpackbits(fec.fec_encode(s, torch.as_tensor(data))
+                             .numpy(), axis=-1)
+        noisy = torch.as_tensor(np.packbits(
+            bits ^ (rng.random(bits.shape) < 0.05), axis=-1))
+        llr = torch.as_tensor((2.0 * bits - 1.0) + rng.normal(
+            size=bits.shape), dtype=torch.float32)
+        cpu[name] = (noisy, llr,
+                     conv.conv_decode(s, noisy.to(cuda), 100).cpu(),
+                     conv.conv_decode_soft(s, llr.to(cuda), 100).cpu())
+    assert kernels.launches["viterbi"] == 2 * len(cpu)
+    monkeypatch.undo()
+    for name, (noisy, llr, hard, soft) in cpu.items():
+        s = fec.fec_from_name(name)
+        assert torch.equal(hard, conv.conv_decode(s, noisy, 100)), name
+        assert torch.equal(soft, conv.conv_decode_soft(s, llr, 100)), name
 
 
 @pytest.mark.gpu
