@@ -49,13 +49,16 @@ def _sync(device):
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
              t_start: float, ingest: str = "c64", log=print,
-             count: int | None = None) -> dict:
+             count: int | None = None, world=None) -> dict | None:
     """Run ``cell`` (from :func:`manifest.cell`) once: the result object,
     with the numbers compared, each beside its limit, under ``checks``.
     ``count`` replaces the clock by a number of dispatches (the CPU
-    rehearsals)."""
+    rehearsals).  ``world`` (:class:`ranks.World`) makes this one rank of
+    a cell on several cards; a rank other than 0 returns ``None``."""
     config, traffic = cell["config"], cell["traffic"]
     stream = txgen.make_stream(config, traffic, seed, device)
+    if world is not None:
+        world.check_stream(stream)
     entry = manifest.entry_class(config)(config, device, ingest)
     inputs = [entry.host_input(c) for c in stream.chunks]
     entry.run(iter(inputs[:config["warm_dispatches"]]), Clock())
@@ -64,6 +67,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
+    if world is not None:
+        world.end_setup()
     setup_s = time.perf_counter() - t_start
 
     clock = Clock()
@@ -74,11 +79,16 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
         tr = profiling.profile_window(
             lambda: entry.run(_buffers(inputs, count=K), clock), K)
         window_s = tr.seconds
+        if world is not None:
+            world.end_window()
     else:
         t0, cpu0 = time.perf_counter(), time.thread_time()
-        entry.run(_buffers(inputs, count=count,
-                           deadline=None if count else t0 + seconds), clock)
+        buffers = _buffers if world is None else world.buffers
+        entry.run(buffers(inputs, count=count,
+                          deadline=None if count else t0 + seconds), clock)
         _sync(device)
+        if world is not None:
+            world.end_window()
         window_s = time.perf_counter() - t0
         host = (f" (the loop's thread on a host core "
                 f"{time.thread_time() - cpu0:.6f} s)")
@@ -88,6 +98,11 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     rows = entry.rows()
     del entry, inputs
+    if world is not None:
+        world.dispatches, world.peak = dispatches, int(peak)
+        if world.rank:
+            log(f"window: {dispatches} dispatches")
+            return None
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()

@@ -6,6 +6,20 @@ configuration's file (``configs``, ``file``) names its entry module
 ``rxbench/traffic/<traffic>.json``; each per-layer metric is read by
 ``rxbench/metrics/<name>.py``.  Adding a cell, a configuration, a traffic
 mix or a metric adds files and entries and edits none.
+
+The entry contract on k > 1 cards (``chips``; ``rxbench/ranks.py``): rank
+r is a process of its own and builds ``Entry(config, "cuda:r", ingest)``
+with the signature a one-card entry has, after the harness has formed the
+default process group (NCCL, ``device_id`` = ``cuda:r``); the entry reads
+its rank and the world's size from ``torch.distributed`` and builds its
+mesh with the port's ``parallel.mesh.make_sdr_mesh``.  Every rank makes
+the stream from the seed on its own card (``txgen.make_stream``), and
+set-up fails unless the hashes of every rank's host chunks, gathered at
+set-up, equal rank 0's.  ``dispatch_samples`` counts the input samples of
+a dispatch over all ranks.  Every rank is handed the same buffers in the
+same number; ``rows()`` is called on every rank after the window, and rank
+0's are the global rows, the only ones ``reference.match`` and
+``estimate_gaps`` judge.
 """
 from __future__ import annotations
 

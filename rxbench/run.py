@@ -11,6 +11,20 @@ last ``checks``: each number the comparison with the reference read,
 beside its limit.  The same numbers are the last lines of standard error.
 Without as many CUDA devices as the cell asks for, it prints no result
 and exits with 2; if JAX or the JAX package was imported, with 3.
+
+A cell with ``chips`` = 1 runs in this process on ``cuda:0`` and forms no
+process group.  A cell with ``chips`` = k > 1 runs as k spawned ranks
+(``rxbench/ranks.py``), rank r on ``cuda:r``, and its entry may rely on
+this: the default process group (NCCL, ``device_id`` = ``cuda:r``) is
+formed before ``Entry(config, "cuda:r", ingest)`` is built, so the entry
+reads its rank and the world's size from ``torch.distributed`` and builds
+its mesh with the port's ``parallel.mesh.make_sdr_mesh``; every rank makes
+the stream from the seed on its own card and set-up fails unless every
+rank's host chunks hash as rank 0's; every rank is handed the same
+buffers in the same number, rank 0's clock deciding when the window
+closes; ``entry.rows()`` is called on every rank after the window and
+rank 0's must be the global rows, the only ones judged.  A rank that fails
+ends the run with its traceback on standard error, exit 1 and no result.
 """
 import time
 
@@ -57,8 +71,17 @@ def main(argv=None) -> int:
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 2
     log(f"card: {card()}")
-    out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                           "cuda:0", T0, log=log)
+    if chips == 1:
+        out = harness.run_cell(cell, args.seed, args.seconds,
+                               bool(args.trace), "cuda:0", T0, log=log)
+    else:
+        from rxbench import ranks
+        try:
+            out = ranks.launch(cell, args.seed, args.seconds,
+                               bool(args.trace), T0, log=log)
+        except ranks.RankFailure as e:
+            log(e)
+            return e.code
     found = sorted({m.split(".")[0] for m in sys.modules} & FORBIDDEN)
     if found:
         log(f"imported in this process: {', '.join(found)}")
