@@ -12,6 +12,9 @@ package's ``shard_map`` bodies, over the dims of a ``('time', 'channel')``
 * :func:`gather_tree` — the global view of a result tree that JAX's
   ``out_specs`` assemble: every leaf gathered over the mesh dims, as
   bytes, into host NumPy arrays ``[size(dim0), size(dim1), ..., *leaf]``.
+* :func:`gather_first` — the same view on the first rank along the dims
+  only, as tensors on its device: under NCCL nothing reaches the host and
+  the host waits for nothing.
 
 Complex tensors travel as their float32 pairs.  The backend decides the
 staging up front: under gloo a CUDA tensor goes through a pinned host copy
@@ -22,6 +25,13 @@ card on the host (gloo's staging copies, the gather's copy to the host)
 waits for the card's queued work before its clock starts; an NCCL
 point-to-point or all-to-all counts its enqueue and its wait, not the
 transfer the card does later.
+
+Tracing (``utils/profiling.py``): every call opens one ``rx.exchange``
+span (an all-to-all two, its launch and its wait), and counts under
+``exchange_bytes`` the bytes this rank sends to other ranks, from the
+tensors' sizes on the host: a ``ppermute``'s tensor once a destination,
+the other ranks' pieces of an all-to-all, a gather's buffer once a rank
+it reaches.  Both only while a profiler records.
 """
 from __future__ import annotations
 
@@ -31,8 +41,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["dim_size", "ppermute", "all_to_all", "gather_tree", "stats",
-           "reset_stats"]
+from ..utils.profiling import count, span
+
+__all__ = ["dim_size", "ppermute", "all_to_all", "gather_tree",
+           "gather_first", "stats", "reset_stats"]
+EXCHANGE = "rx.exchange"
 
 stats = {"calls": 0, "seconds": 0.0}
 
@@ -96,6 +109,10 @@ def _unwire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return torch.view_as_complex(w) if like.is_complex() else w
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def ppermute(x: torch.Tensor, mesh, dims, pairs) -> torch.Tensor:
     """``lax.ppermute(x, dims, pairs)``: index ``s`` along ``dims`` sends
     ``x`` to index ``d`` for each ``(s, d)`` in ``pairs``; an index that no
@@ -106,16 +123,18 @@ def ppermute(x: torch.Tensor, mesh, dims, pairs) -> torch.Tensor:
     dst = [d for s, d in pairs if s == me]
     if me in src and me in dst:              # a pair from a rank to itself
         return x.clone()
-    t0 = _start(x)
-    send = _wire(x)
-    recv = torch.zeros_like(send) if src else None
-    ops = [dist.P2POp(dist.isend, send, ranks[d]) for d in dst]
-    ops += [dist.P2POp(dist.irecv, recv, ranks[s]) for s in src]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    out = _unwire(recv, x) if src else torch.zeros_like(x)
-    _account(t0)
+    with span(EXCHANGE):
+        t0 = _start(x)
+        send = _wire(x)
+        count("exchange_bytes", _nbytes(send) * len(dst))
+        recv = torch.zeros_like(send) if src else None
+        ops = [dist.P2POp(dist.isend, send, ranks[d]) for d in dst]
+        ops += [dist.P2POp(dist.irecv, recv, ranks[s]) for s in src]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        out = _unwire(recv, x) if src else torch.zeros_like(x)
+        _account(t0)
     return out
 
 
@@ -127,11 +146,12 @@ class _Pending:
         self._axis, self._launch = concat_axis, time.perf_counter() - t0
 
     def wait(self) -> torch.Tensor:
-        t0 = time.perf_counter()
-        self._work.wait()
-        out = _unwire(self._recv, self._like).movedim(0, self._axis)
-        stats["seconds"] += self._launch
-        _account(t0)
+        with span(EXCHANGE):
+            t0 = time.perf_counter()
+            self._work.wait()
+            out = _unwire(self._recv, self._like).movedim(0, self._axis)
+            stats["seconds"] += self._launch
+            _account(t0)
         return out
 
 
@@ -147,18 +167,27 @@ def all_to_all(x: torch.Tensor, mesh, dim: str, split_axis: int,
     if x.shape[split_axis] != n:
         raise ValueError(f"split axis of size {x.shape[split_axis]}, "
                          f"dim {dim!r} has {n} ranks")
-    t0 = _start(x)
-    like = x.movedim(split_axis, 0)
-    send = _wire(like)
-    recv = torch.empty_like(send)
-    work = dist.all_to_all_single(recv, send, group=mesh.get_group(dim),
-                                  async_op=True)
-    pending = _Pending(work, recv, like, concat_axis, t0)
+    with span(EXCHANGE):
+        t0 = _start(x)
+        like = x.movedim(split_axis, 0)
+        send = _wire(like)
+        count("exchange_bytes", _nbytes(send) // n * (n - 1))
+        recv = torch.empty_like(send)
+        work = dist.all_to_all_single(recv, send,
+                                      group=mesh.get_group(dim),
+                                      async_op=True)
+        pending = _Pending(work, recv, like, concat_axis, t0)
     return pending if async_op else pending.wait()
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _pack(leaves) -> torch.Tensor:
+    """The leaves' bytes, one after another, as one uint8 tensor."""
+    return torch.cat([v.contiguous().reshape(-1).view(torch.uint8)
+                      for v in leaves])
 
 
 def gather_tree(leaves, mesh, dims) -> list[np.ndarray]:
@@ -169,21 +198,66 @@ def gather_tree(leaves, mesh, dims) -> list[np.ndarray]:
     int32, float32, complex64) crosses either backend unchanged."""
     dims = (dims,) if isinstance(dims, str) else tuple(dims)
     leaves = list(leaves)
-    buf = torch.cat([v.contiguous().reshape(-1).view(torch.uint8)
-                     for v in leaves])
-    t0 = _start(buf, host_wait=True)
-    wire = _wire(buf)
-    for d in reversed(dims):
-        parts = [torch.empty_like(wire) for _ in range(dim_size(mesh, d))]
-        dist.all_gather(parts, wire, group=mesh.get_group(d))
-        wire = torch.stack(parts)
-    host = wire.cpu().numpy()
-    _account(t0)
+    with span(EXCHANGE):
+        buf = _pack(leaves)
+        t0 = _start(buf, host_wait=True)
+        wire = _wire(buf)
+        # the buffer reaches every other rank along the dims once
+        count("exchange_bytes", _nbytes(wire) * (int(np.prod(
+            [dim_size(mesh, d) for d in dims])) - 1))
+        for d in reversed(dims):
+            parts = [torch.empty_like(wire) for _ in range(dim_size(mesh, d))]
+            dist.all_gather(parts, wire, group=mesh.get_group(d))
+            wire = torch.stack(parts)
+        host = wire.cpu().numpy()
+        _account(t0)
     lead = host.shape[:-1]
     out, off = [], 0
     for v in leaves:
-        nb = v.numel() * v.element_size()
+        nb = _nbytes(v)
         raw = np.ascontiguousarray(host[..., off:off + nb])
         out.append(raw.view(_np_dtype(v.dtype)).reshape(lead + v.shape))
+        off += nb
+    return out
+
+
+def gather_first(leaves, mesh, dims) -> list[torch.Tensor] | None:
+    """Every rank's ``leaves`` on the rank at index 0 of every dim in
+    ``dims``, as tensors on its device ``[size(dims[0]), ...,
+    size(dims[-1]), *leaf.shape]``; ``None`` on every other rank.  Packed
+    as :func:`gather_tree` packs them and gathered over the last dim
+    first, so only the ranks at index 0 of a dim take part in the next.
+    Under NCCL the gathers are enqueued on the card and the leaves are
+    cut out of the gathered bytes there: nothing is copied to the host or
+    waited for (under gloo a card's bytes go through the host)."""
+    dims = (dims,) if isinstance(dims, str) else tuple(dims)
+    leaves = list(leaves)
+    with span(EXCHANGE):
+        buf = _pack(leaves)
+        t0 = _start(buf)
+        wire, sent = _wire(buf), 0
+        for d in reversed(dims):
+            ranks, me = _axis_ranks(mesh, (d,))
+            if me:                   # this rank's part ends here
+                dist.gather(wire, None, dst=ranks[0],
+                            group=mesh.get_group(d))
+                sent, wire = _nbytes(wire), None
+                break
+            parts = [torch.empty_like(wire) for _ in ranks]
+            dist.gather(wire, parts, dst=ranks[0], group=mesh.get_group(d))
+            wire = torch.stack(parts)
+        count("exchange_bytes", sent)
+        if wire is not None:
+            wire = _unwire(wire, buf)
+        _account(t0)
+    if wire is None:
+        return None
+    lead = wire.shape[:-1]
+    out, off = [], 0
+    for v in leaves:
+        nb = _nbytes(v)
+        # a copy of its own, so that the bytes view as the leaf's dtype
+        raw = wire[..., off:off + nb].contiguous()
+        out.append(raw.view(v.dtype).reshape(lead + v.shape))
         off += nb
     return out

@@ -22,7 +22,10 @@ JAX's row order for the receivers, ``[n_time * rows, ...]`` for the
 time-sharded sync and the mixture ``[2N * T]`` for the transmitter.
 ``run`` applies the receivers' host regroup itself; ``run.regroup`` is kept
 only to mirror JAX's public names (JAX exposes it to callers of
-``run.jit_fn``, which the port has not).
+``run.jit_fn``, which the port has not).  The all-to-all receiver is also a
+streaming step (:func:`make_sharded_mcrx_a2a_step`, which JAX has not):
+state in and out as the one-card steps, the global results on the first
+rank's device only.
 
 Each rank computes its global sample indices on the host: its mesh
 coordinates are Python ints, where JAX traces ``axis_index`` into uint32
@@ -30,6 +33,8 @@ arithmetic.  The NCO phase at an index is exact in uint32 either way
 (:func:`..ops.nco.nco_init_at`).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,11 +45,13 @@ from ..ops import iqfmt
 from ..ops import nco as nco_mod
 from ..ops import pfb as pfb_mod
 from ..utils.consts import on
+from ..utils.profiling import span
 from . import distributed
-from ._comm import all_to_all, dim_size, gather_tree, ppermute
+from ._comm import all_to_all, dim_size, gather_first, gather_tree, ppermute
 
 __all__ = ["make_time_sharded_sync", "make_sharded_mcrx",
-           "make_sharded_mcrx_a2a", "sharded_mcrx", "make_sharded_mctx",
+           "make_sharded_mcrx_a2a", "make_sharded_mcrx_a2a_step",
+           "ShardedMcrxState", "sharded_mcrx", "make_sharded_mctx",
            "shard_for"]
 
 TIME_CHANNEL = ("time", "channel")
@@ -235,6 +242,126 @@ def make_sharded_mcrx(mesh, num_channels: int, sync: ofdm_sync.OfdmSync,
     return run
 
 
+class ShardedMcrxState(NamedTuple):
+    """What :func:`make_sharded_mcrx_a2a_step` carries from a super-step
+    to the next on each rank: the last ``2N * 4P`` samples of its fine
+    chunk (the analysis-filter memory; the last fine chunk's reaches the
+    first at the next super-step), the last ``overlap`` samples of its
+    channels' streams ``[N_loc, overlap]`` (the sync tails; the last time
+    row's reach the first), and the global super-step index, which fixes
+    the NCO phase and the int32 block base."""
+    ana_tail: torch.Tensor
+    s_tail: torch.Tensor
+    step: int
+
+
+def _ring(n: int) -> list[tuple[int, int]]:
+    """Each index sends to its right neighbour, the last to the first."""
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+def _a2a_receiver(mesh, num_channels: int, sync: ofdm_sync.OfdmSync,
+                  chunk_blocks: int, device):
+    """The all-to-all receiver's super-step on this rank, shared by
+    :func:`make_sharded_mcrx_a2a` and :func:`make_sharded_mcrx_a2a_step`:
+    ``(init_state, (stage_a, stage_a_finish, stage_b), mix_sub)``.
+    ``stage_a`` channelizes the rank's fine chunk (complex64 ``[mix_sub]``)
+    and launches the all-to-all, ``stage_a_finish`` waits for it and
+    swaps the sync halos, ``stage_b`` syncs the rank's channels into
+    leaves ``[N_loc, rows, ...]``.  Between one super-step's ``stage_a``
+    and its ``stage_a_finish`` the previous super-step's ``stage_b`` may
+    run, while the all-to-all is in flight."""
+    N = num_channels
+    n_time = dim_size(mesh, "time")
+    n_ch = dim_size(mesh, "channel")
+    if N % n_ch:
+        raise ValueError(f"{N} channels not divisible by {n_ch} shards")
+    N_loc = N // n_ch
+    chz = pfb_mod.pfbch_create(2 * N, m=7, As=60.0)
+    B_sub = sync.block_size * chunk_blocks      # channel-samples, fine chunk
+    B_grp = B_sub * n_ch                        # channel-samples per time row
+    halo = sync.overlap                         # sync overlap (channel-samp)
+    ana_halo = 4 * chz.P                        # analysis filter memory
+    if B_grp < halo:
+        raise ValueError(
+            f"time-row chunk ({B_grp}) must cover the sync halo ({halo})")
+    if B_sub < ana_halo:
+        raise ValueError(
+            f"fine chunk ({B_sub} channel-samples) must cover the "
+            f"analysis filter memory ({ana_halo}); raise chunk_blocks "
+            f"or block_size")
+    mix_sub = 2 * N * B_sub
+    freq = -_center_offset(N)
+    n_dev = n_time * n_ch
+    ana_tail_len = 2 * N * ana_halo
+    dev = distributed.local_device(device)
+    t_idx = mesh.get_local_rank("time")
+    c_idx = mesh.get_local_rank("channel")
+    flat = t_idx * n_ch + c_idx                 # fine chunk index
+    h = on(chz.h_pol, dev)
+    tables = ofdm_sync.sync_tables(sync, dev)
+    rows = chunk_blocks * n_ch * sync.max_frames
+
+    def init_state() -> ShardedMcrxState:
+        """The stream's start: zero filter memory and sync tails."""
+        return ShardedMcrxState(ana_tail=iqfmt.czeros(ana_tail_len, dev),
+                                s_tail=iqfmt.czeros((N_loc, halo), dev),
+                                step=0)
+
+    def stage_a(x_step, ana_tail_prev, gstep):
+        """Channelize one super-step and launch its all-to-all.
+
+        The analysis-filter halo comes from the left neighbour in the
+        combined (time, channel) order through one ring ``ppermute``: the
+        last fine chunk sends ``ana_tail_prev``, its own tail of the
+        previous super-step, round to the first, so the stream is
+        continuous across super-steps (step 0 passes zeros: the stream
+        start)."""
+        tail = x_step[mix_sub - ana_tail_len:]
+        left = ppermute(tail if flat < n_dev - 1 else ana_tail_prev, mesh,
+                        TIME_CHANNEL, _ring(n_dev))
+        with span("rx.front_end"):
+            ext = torch.cat([left, x_step])
+            # NCO at the fine chunk's global index, exact in uint32
+            gidx = gstep * n_dev + flat
+            nco0 = nco_mod.nco_init_at(freq, gidx * mix_sub - ana_tail_len,
+                                       dev)
+            _, mixed = nco_mod.nco_mix_block(nco0, ext, up=True)
+            _, X = pfb_mod.pfb_analyze_block(
+                chz, pfb_mod.pfbch_state(chz, dev), mixed, h)
+            chans = X[ana_halo:, :N]             # [B_sub, N] valid frames
+        # reshard: channels split over 'channel', fine time gathered: the
+        # received pieces stack in c order, the fine chunks of this row
+        pending = all_to_all(chans.reshape(B_sub, n_ch, N_loc), mesh,
+                             "channel", split_axis=1, concat_axis=0,
+                             async_op=True)
+        return pending, tail
+
+    def stage_a_finish(pending, sync_tail_prev):
+        """The all-to-all's result as per-channel streams ``[N_loc,
+        B_grp]`` and their sync halo from the previous time row (row 0's
+        comes round the ring from the last row's previous super-step)."""
+        streams = pending.wait().reshape(B_grp, N_loc).T
+        s_tail = streams[:, B_grp - halo:]
+        s_left = ppermute(s_tail if t_idx < n_time - 1 else sync_tail_prev,
+                          mesh, "time", _ring(n_time))
+        return streams, s_left, s_tail
+
+    def stage_b(streams, s_left, gstep):
+        base = _i32((gstep * n_time + t_idx) * B_grp - halo)
+        # flat channels-x-blocks candidate batch, one decode gate
+        states = ofdm_sync.OfdmSyncState(
+            tail=s_left, base=torch.full((N_loc,), base, dtype=torch.int32,
+                                         device=dev))
+        _, res = ofdm_sync.sync_channels_batched(
+            sync, states,
+            streams.reshape(N_loc, chunk_blocks * n_ch, sync.block_size),
+            tables)
+        return [v.reshape((N_loc, rows) + v.shape[3:]) for v in res]
+
+    return init_state, (stage_a, stage_a_finish, stage_b), mix_sub
+
+
 def make_sharded_mcrx_a2a(mesh, num_channels: int,
                           sync: ofdm_sync.OfdmSync, chunk_blocks: int,
                           ingest: str = "c64", n_steps: int = 1,
@@ -261,101 +388,25 @@ def make_sharded_mcrx_a2a(mesh, num_channels: int,
     and super-step ``i-1``'s frame sync runs while it is in flight (the
     overlap JAX leaves to XLA's scheduler).  Filter memory, NCO phase and
     sync overlap carry across super-steps exactly (the wrap-around halos
-    ride two single-pair ``ppermute``\\ s), so the result equals the
-    receiver over the whole stream in one shot.
+    ride the ring ``ppermute``\\ s), so the result equals the receiver over
+    the whole stream in one shot.
     """
-    N = num_channels
-    n_time = dim_size(mesh, "time")
-    n_ch = dim_size(mesh, "channel")
-    if N % n_ch:
-        raise ValueError(f"{N} channels not divisible by {n_ch} shards")
-    N_loc = N // n_ch
-    chz = pfb_mod.pfbch_create(2 * N, m=7, As=60.0)
-    B_sub = sync.block_size * chunk_blocks      # channel-samples, fine chunk
-    B_grp = B_sub * n_ch                        # channel-samples per time row
-    halo = sync.overlap                         # sync overlap (channel-samp)
-    ana_halo = 4 * chz.P                        # analysis filter memory
-    if B_grp < halo:
-        raise ValueError(
-            f"time-row chunk ({B_grp}) must cover the sync halo ({halo})")
-    if B_sub < ana_halo:
-        raise ValueError(
-            f"fine chunk ({B_sub} channel-samples) must cover the "
-            f"analysis filter memory ({ana_halo}); raise chunk_blocks "
-            f"or block_size")
     if ingest not in ("c64", "bf16"):
         raise ValueError(f"unknown ingest {ingest!r} (c64 or bf16)")
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1 (got {n_steps})")
-    mix_sub = 2 * N * B_sub
-    freq = -_center_offset(N)
+    init_state, (stage_a, stage_a_finish, stage_b), mix_sub = \
+        _a2a_receiver(mesh, num_channels, sync, chunk_blocks, device)
+    N, n_time = num_channels, dim_size(mesh, "time")
     planes = ingest == "bf16"
-    n_dev = n_time * n_ch
-    ana_tail_len = 2 * N * ana_halo
     dev = distributed.local_device(device)
-    t_idx = mesh.get_local_rank("time")
-    c_idx = mesh.get_local_rank("channel")
-    flat = t_idx * n_ch + c_idx                 # fine chunk index
-    h = on(chz.h_pol, dev)
-    tables = ofdm_sync.sync_tables(sync, dev)
-    rows = chunk_blocks * n_ch * sync.max_frames
-
-    def stage_a(x_step, ana_tail_prev, gstep):
-        """Channelize one super-step and launch its all-to-all.
-
-        ``ana_tail_prev`` is this rank's own tail of the previous
-        super-step; the wrap-around link (combined-order rank 0) receives
-        it through a single-pair ``ppermute``, so the stream is continuous
-        across super-steps.  Step 0 passes zeros: the stream start."""
-        tail = x_step[mix_sub - ana_tail_len:]
-        left = ppermute(tail, mesh, TIME_CHANNEL, _chain(n_dev))
-        left = left + ppermute(ana_tail_prev, mesh, TIME_CHANNEL,
-                               [(n_dev - 1, 0)])
-        ext = torch.cat([left, x_step])
-        # NCO at the fine chunk's global index, exact in uint32
-        gidx = gstep * n_dev + flat
-        nco0 = nco_mod.nco_init_at(freq, gidx * mix_sub - ana_tail_len, dev)
-        _, mixed = nco_mod.nco_mix_block(nco0, ext, up=True)
-        _, X = pfb_mod.pfb_analyze_block(chz, pfb_mod.pfbch_state(chz, dev),
-                                         mixed, h)
-        chans = X[ana_halo:, :N]                 # [B_sub, N] valid frames
-        # reshard: channels split over 'channel', fine time gathered: the
-        # received pieces stack in c order, the fine chunks of this row
-        pending = all_to_all(chans.reshape(B_sub, n_ch, N_loc), mesh,
-                             "channel", split_axis=1, concat_axis=0,
-                             async_op=True)
-        return pending, tail
-
-    def stage_a_finish(pending, sync_tail_prev):
-        """The all-to-all's result as per-channel streams ``[N_loc,
-        B_grp]`` and their sync halo from the previous time row (row 0
-        wraps to the last row of the previous super-step)."""
-        streams = pending.wait().reshape(B_grp, N_loc).T
-        s_tail = streams[:, B_grp - halo:]
-        s_left = ppermute(s_tail, mesh, "time", _chain(n_time))
-        s_left = s_left + ppermute(sync_tail_prev, mesh, "time",
-                                   [(n_time - 1, 0)])
-        return streams, s_left, s_tail
-
-    def stage_b(streams, s_left, gstep):
-        base = _i32((gstep * n_time + t_idx) * B_grp - halo)
-        # flat channels-x-blocks candidate batch, one decode gate
-        states = ofdm_sync.OfdmSyncState(
-            tail=s_left, base=torch.full((N_loc,), base, dtype=torch.int32,
-                                         device=dev))
-        _, res = ofdm_sync.sync_channels_batched(
-            sync, states,
-            streams.reshape(N_loc, chunk_blocks * n_ch, sync.block_size),
-            tables)
-        return [v.reshape((N_loc, rows) + v.shape[3:]) for v in res]
 
     def run(x_local):
         n_in = n_steps * mix_sub * (2 if planes else 1)
         x = _local_input(x_local, dev, n_in)
         x = (x.reshape(n_steps, 2, mix_sub) if planes
              else x.reshape(n_steps, mix_sub))
-        ana_tail = iqfmt.czeros(ana_tail_len, dev)
-        s_tail = iqfmt.czeros((N_loc, halo), dev)
+        ana_tail, s_tail, _ = init_state()
         results = []
         prev = None                               # (streams, s_left) of i-1
         for i in range(n_steps):
@@ -380,6 +431,58 @@ def make_sharded_mcrx_a2a(mesh, num_channels: int,
     lead = (None,) * ((n_steps > 1) + planes)
     run.in_spec = lead + (TIME_CHANNEL,)
     return run
+
+
+def make_sharded_mcrx_a2a_step(mesh, num_channels: int,
+                               sync: ofdm_sync.OfdmSync, chunk_blocks: int,
+                               device=None):
+    """The all-to-all sharded receiver as a streaming step: ``(init_state,
+    step)``, as :func:`..models.multichannel.make_mcrx_batched_step`
+    gives, for ``io/pipeline.py::run_pipelined`` on every rank.
+
+    Each rank calls ``step(state, x_local)`` with its fine chunk of one
+    dispatch, ``2N * chunk_blocks * block_size`` samples (complex64, or IQ
+    planes ``[2, ...]``), cut as :func:`make_sharded_mcrx_a2a`'s
+    (``step.in_spec``), and gets ``(state', results)``.  The state
+    (:class:`ShardedMcrxState`) carries the filter memory, the sync tails
+    and the super-step index, so ``k`` calls give the rows of the one-shot
+    ``make_sharded_mcrx_a2a(..., n_steps=k)`` over the same stream.  Each
+    call finishes its own super-step.  The rank at ``(0, 0)`` gets the
+    dispatch's ``FrameResults`` with leaves ``[N, n_time * chunk_blocks *
+    n_ch * max_frames, ...]`` in global channel and row order, gathered
+    and regrouped on its device (:func:`._comm.gather_first`: under NCCL
+    no host copy and no host wait); every other rank gets its own
+    channels' ``[N_loc, ...]``.  Spans: ``rx.dispatch`` a call,
+    ``rx.front_end`` around the NCO and the analyzer, ``rx.exchange``
+    around each collective (``_comm``).
+    """
+    init_state, (stage_a, stage_a_finish, stage_b), mix_sub = \
+        _a2a_receiver(mesh, num_channels, sync, chunk_blocks, device)
+    N = num_channels
+    dev = distributed.local_device(device)
+
+    def regroup(v):
+        # [n_time, n_ch, N_loc, rows, ...] -> [N, n_time * rows, ...]
+        return v.movedim(0, 2).reshape((N, -1) + tuple(v.shape[4:]))
+
+    def step(state: ShardedMcrxState, x_local):
+        with span("rx.dispatch"):
+            x = iqfmt.iq_from_any(torch.as_tensor(x_local, device=dev))
+            if x.shape != (mix_sub,):
+                raise ValueError(f"this rank's chunk holds {tuple(x.shape)} "
+                                 f"samples, the step expects ({mix_sub},) "
+                                 f"(see step.in_spec)")
+            pending, ana_tail = stage_a(x, state.ana_tail, state.step)
+            streams, s_left, s_tail = stage_a_finish(pending, state.s_tail)
+            leaves = stage_b(streams, s_left, state.step)
+            state = ShardedMcrxState(ana_tail, s_tail, state.step + 1)
+            full = gather_first(leaves, mesh, TIME_CHANNEL)
+            res = ofdm_sync.FrameResults(*(
+                leaves if full is None else map(regroup, full)))
+        return state, res
+
+    step.in_spec = (TIME_CHANNEL,)
+    return init_state, step
 
 
 # The all-to-all variant is the DEFAULT sharded multichannel receiver: it

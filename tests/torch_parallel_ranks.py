@@ -1,4 +1,5 @@
-"""Rank functions of the parallel-layer tests (``tests/test_torch_parallel*.py``).
+"""Rank functions of the parallel-layer tests
+(``tests/test_torch_parallel*.py``, ``tests/test_torch_sharded_step.py``).
 
 A world spawned by ``liquid_usrp_tpu_torch.parallel.distributed.spawn``
 imports the module of its rank function in each child, so these live here,
@@ -14,6 +15,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+from liquid_usrp_tpu_torch.ops import iqfmt
 from liquid_usrp_tpu_torch.parallel import _comm, distributed, stream
 from liquid_usrp_tpu_torch.parallel.mesh import make_sdr_mesh
 from liquid_usrp_tpu_torch.utils.device import DEVICE_ENV
@@ -204,3 +206,115 @@ def hangs(rank):
     else:
         import time
         time.sleep(3600)
+
+
+# ---------------------------------------------------------------------------
+# test_torch_sharded_step.py: one 2x2 world, and planted faults in the
+# benchmark's ranks
+# ---------------------------------------------------------------------------
+
+def _traced(step, state, x):
+    """One ``step`` call under a CPU profiler: ``(state', results, trace,
+    exchange_bytes added)``, the trace as the benchmark collects it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from liquid_usrp_tpu_torch.utils import profiling
+    from rxbench import profiling as rxprof
+    before = profiling.counters.get("exchange_bytes", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function(rxprof.WINDOW):
+            state, res = step(state, x)
+    sent = profiling.counters.get("exchange_bytes", 0) - before
+    return state, res, rxprof.collect(prof, 1), sent
+
+
+def sharded_step(rank, cfg, dispatches):
+    """``make_sharded_mcrx_a2a_step`` over ``dispatches`` (global mixture
+    chunks; its last call traced: its spans, the bytes it counted and what
+    the benchmark's readers read of it), over the first two as bfloat16
+    planes, and the one-shot ``n_steps`` form over the same stream."""
+    from rxbench import spans
+    from rxbench.metrics import (exchange_host_ms, exchange_mbytes,
+                                 exchange_roofline_pct)
+    m = make_sdr_mesh()
+    sync = ofdm_sync.make_sync(ofdm.make_ofdm_params(48, 6, 4),
+                               **cfg["sync"])
+    N, k = cfg["N"], len(dispatches)
+    init, step = stream.make_sharded_mcrx_a2a_step(m, N, sync, 1,
+                                                   device=CPU)
+    mine = [stream.shard_for(m, d, step.in_spec) for d in dispatches]
+    out = {"in_spec": step.in_spec,
+           "bad_chunk": _raises(step, init(), mine[0][:-1])}
+
+    state, res = init(), []
+    for x in mine[:-1]:
+        state, r = step(state, x)
+        res.append(r)
+    state, r, trace, sent = _traced(step, state, mine[-1])
+    res.append(r)
+    out["shapes"] = [tuple(r.payload.shape) for r in res]
+    out["on_device"] = all(isinstance(v, torch.Tensor) and v.device.type ==
+                           CPU for r in res for v in r)
+    out["state_step"] = state.step
+    out["spans"] = {n: len(spans.spans(trace, n)) for n in
+                    ("rx.exchange", "rx.dispatch", "rx.front_end")}
+    out["exchange_bytes"] = sent
+    out["local_bytes"] = sum(v.numel() * v.element_size() for v in r)
+    cell = {"config": {"num_channels": N, "mesh": [2, 2]}}
+    out["readers"] = {
+        "exchange_host_ms": exchange_host_ms.read(trace, cell),
+        "exchange_mbytes": exchange_mbytes.read(trace, cell),
+        "exchange_roofline_pct": exchange_roofline_pct.read(trace, cell)}
+
+    state, planes = init(), []
+    for x in mine[:2]:
+        state, r = step(state, iqfmt.iq_to_planes(torch.as_tensor(x)))
+        planes.append(r)
+    run = stream.make_sharded_mcrx_a2a(m, N, sync, 1, n_steps=k, device=CPU)
+    one_shot = run(stream.shard_for(m, np.stack(dispatches), run.in_spec))
+    if rank == 0:
+        out["step"] = [_np(r) for r in res]
+        out["step_bf16"] = [_np(r) for r in planes]
+        out["one_shot"] = _np(one_shot)
+    return out
+
+
+def _reinit_state():
+    """Every call of the sharded step starts from a fresh state."""
+    from rxbench.entries import mcrx_sharded
+    build = mcrx_sharded.make_sharded_mcrx_a2a_step
+
+    def planted(*args, **kwargs):
+        init, step = build(*args, **kwargs)
+
+        def fresh(state, x):
+            return step(init(), x)
+        fresh.in_spec = step.in_spec
+        return init, fresh
+    mcrx_sharded.make_sharded_mcrx_a2a_step = planted
+
+
+def _own_rows_only():
+    """Rank 0's gathered results keep only its own rows."""
+    gather = stream.gather_first
+
+    def own(leaves, mesh, dims):
+        full = gather(leaves, mesh, dims)
+        for v in full or ():
+            mine = v[0, 0].clone()
+            v.zero_()
+            v[0, 0] = mine
+        return full
+    stream.gather_first = own
+
+
+def reinits_state(rank, *args):
+    from rxbench import ranks
+    _reinit_state()
+    ranks.rank_main(rank, *args)
+
+
+def reports_own_rows(rank, *args):
+    from rxbench import ranks
+    _own_rows_only()
+    ranks.rank_main(rank, *args)
