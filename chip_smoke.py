@@ -35,7 +35,13 @@ parallel layer (``parallel/``: worlds of ranks that share the card):
    the 2,052-byte budget, 16,422 steps, at 2 % bit errors, the last row a
    third erased): every bit equal to the plain version's, the 9 unerased
    rows decoded, its device time beside the bytes' bound and the time a
-   step of its chain takes;
+   step of its chain takes; the nearest-point scan's kernel
+   (``csrc/nearest.cu``) at the ``mcrx4.loaded`` dispatch's call shapes
+   (192 candidate rows: the decision-directed pass's 64 symbols against
+   256 entries, the codec's demap and the payload EVM over the whole
+   payload against 64 and 256): ``arg`` and ``best`` equal to the plain
+   loop's bit for bit, its device time beside its bound (float32
+   operations, 5 a pair);
 4. the multichannel path at N=4, M=48, cp=6, taper=4, 400-byte payloads,
    ``block_size=65536``, ``n_blocks=2``, ``max_frames=24``,
    ``max_payload=512`` for detect levels ``use_pallas`` 0, 1 and 2, on a
@@ -337,6 +343,14 @@ VITERBI = dict(
          "dependent trellis steps, not by bytes or operations",
     kernel="viterbi_warp_kernel")
 VIT_ROWS, VIT_BYTES = 10, 2052
+# the nearest-point scan's kernel: its source note and CUDA kernel
+NEAREST = dict(
+    source="liquid_usrp_tpu_torch/csrc/nearest.cu", replaces=None,
+    note="replaces no Pallas kernel: the JAX package's lax.scan over table "
+         "chunks (liquid_usrp_tpu/framing/payload.py::_nearest_sym), whose "
+         "eager form launched 130-180 kernels a call; bound by float32 "
+         "operations, 5 a (point, entry) pair",
+    kernel="nearest_kernel")
 V27_FRAMES = 20                # frames of the cell's receiver run
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores, at a 700 W limit
@@ -807,6 +821,52 @@ def check_viterbi_kernel(dev):
           f"trellis step ({T} steps, {B} rows in parallel): the chain, not "
           f"the bytes, bounds it", flush=True)
     return t
+
+
+def check_nearest_kernel(dev):
+    """The nearest-point kernel against the plain loop on the card at the
+    ``mcrx4.loaded`` dispatch's call shapes: points at 20 dB around a
+    random scheme's constellation a row, tables the first C entries of
+    each row's padded table; ``arg`` equal and ``best`` bit-equal.  Bytes:
+    the points and tables read and ``arg`` and ``best`` written once;
+    operations 5 a (point, entry) pair.  Returns the timings of the
+    payload EVM's shape (the whole payload against 256 entries), for the
+    kernels line."""
+    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync, payload
+    from liquid_usrp_tpu_torch.ops import modem
+    params = ofdm.make_ofdm_params(M, CP, TAPER)
+    sync = ofdm_sync.make_sync(params, block_size=BLOCK,
+                               max_payload=MAX_PAYLOAD, max_frames=MAX_FRAMES)
+    R = N * N_BLOCKS * MAX_FRAMES
+    n_data = len(params.data_idx)
+    dd = min(ofdm_sync._DD_SYMS, sync.max_psym)
+    rng = np.random.default_rng(0x5CA7)
+    stacked = payload._stacked_tables()
+    times = {}
+    for label, n_sym, C in (("dd", dd, 256), ("demap", sync.max_psym, 64),
+                            ("evm", sync.max_psym, 256)):
+        n = n_sym * n_data
+        mods = rng.integers(0, len(payload.PAYLOAD_MODS), R)
+        tab = stacked[mods][:, :C]
+        size = [min(C, 1 << modem.bits_per_symbol(int(m))) for m in mods]
+        pick = (rng.random((R, n)) * np.array(size)[:, None]).astype(np.int64)
+        x = np.take_along_axis(tab, pick, axis=-1) + 0.07 * (
+            rng.normal(size=(R, n)) + 1j * rng.normal(size=(R, n)))
+        args = (torch.as_tensor(x.astype(np.complex64), device=dev),
+                torch.as_tensor(np.ascontiguousarray(tab), device=dev))
+        got = payload._nearest_sym(*args)
+        want = payload._nearest_sym_plain(*args)
+        if not (torch.equal(got[0], want[0]) and
+                torch.equal(got[1].view(torch.int32),
+                            want[1].view(torch.int32))):
+            raise AssertionError(f"nearest ({label}): the kernel differs "
+                                 f"from the plain loop at {R} x {n} x {C}")
+        times[label] = timed(
+            "nearest", payload._nearest_sym, payload._nearest_sym_plain,
+            args, 0, (R * n * 20 + R * C * 8, 5 * R * n * C), (R, n, C),
+            label=f"nearest ({label}: {R} x {n} points, {C} entries, equal "
+            f"to the plain loop)", kernel=NEAREST["kernel"], plain_iters=3)
+    return times["evm"]
 
 
 def timed(name, fn, plain, args, err, nbytes_flops, shape, label=None,
@@ -1870,8 +1930,10 @@ def run_ofdm_v27(tmpdir):
     one dispatch a ``run_rx`` call, with the launch counts reset just
     before and the counters on (phase 18).  Every frame must come back
     valid; the Viterbi kernel must launch once in each dispatch that
-    decodes a frame, over ``VIT_BYTES * 8 + 6`` steps each, and no B1-B5
-    kernel but B1 may launch.  Returns the run's launch counts."""
+    decodes a frame, over ``VIT_BYTES * 8 + 6`` steps each, the
+    nearest-point kernel three times in each (the decision-directed pass,
+    the demap, the payload EVM), and no B1-B5 kernel but B1 may launch.
+    Returns the run's launch counts."""
     from liquid_usrp_tpu_torch.apps import ofdmflexframe_tx
     from liquid_usrp_tpu_torch.io.streams import read_iq
     from liquid_usrp_tpu_torch.models.ofdmtxrx import OfdmTxRx
@@ -1907,10 +1969,13 @@ def run_ofdm_v27(tmpdir):
                              f"valid {[r['payload_valid'] for r in rows]}")
     decoding = sum(1 for got in per if got)
     want = dict(viterbi=decoding, viterbi_launches=decoding,
-                viterbi_steps=decoding * (VIT_BYTES * 8 + 6))
+                viterbi_steps=decoding * (VIT_BYTES * 8 + 6),
+                nearest=3 * decoding, nearest_launches=3 * decoding)
     seen = dict(viterbi=launches["viterbi"],
                 viterbi_launches=counters.get("viterbi_launches", 0),
-                viterbi_steps=counters.get("viterbi_steps", 0))
+                viterbi_steps=counters.get("viterbi_steps", 0),
+                nearest=launches["nearest"],
+                nearest_launches=counters.get("nearest_launches", 0))
     if seen != want:
         raise AssertionError(f"ofdm1_conv.v27 receiver: {seen} over "
                              f"{len(per)} dispatches, {want} expected")
@@ -1921,7 +1986,8 @@ def run_ofdm_v27(tmpdir):
     print(f"ofdm1_conv.v27 receiver: {V27_FRAMES}/{V27_FRAMES} v27 frames "
           f"valid over {len(per)} dispatches, {decoding} decoding a frame; "
           f"the Viterbi kernel launched {launches['viterbi']} times "
-          f"({seen['viterbi_steps']} steps, the 2,052-byte budget each); "
+          f"({seen['viterbi_steps']} steps, the 2,052-byte budget each), "
+          f"the nearest-point kernel {launches['nearest']} times; "
           f"B1-B5: {({k: launches[k] for k in KERNELS})}", flush=True)
     return launches
 
@@ -4050,6 +4116,7 @@ def main() -> int:
 
     times = check_kernels(sync1, Mcrx(N, sync1, N_BLOCKS, dev), blocks)
     times["viterbi"] = check_viterbi_kernel(dev)
+    times["nearest"] = check_nearest_kernel(dev)
 
     launches, step_ms, path_runs = {}, {}, []
     for level in (0, 1, 2):
@@ -4189,7 +4256,11 @@ def main() -> int:
         for name, k in KERNELS.items()] + [
         {"name": "viterbi", "route": "cuda", **vit,
          "launches": ofdm_v27["viterbi"],
-         **times["viterbi"], "library_ms": None}]}), flush=True)
+         **times["viterbi"], "library_ms": None},
+        {"name": "nearest", "route": "cuda",
+         **{k: v for k, v in NEAREST.items() if k != "kernel"},
+         "launches": ofdm_v27["nearest"],
+         **times["nearest"], "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,9 @@ axis replaces the JAX code's ``vmap``.
 Exactness rules carried over from the JAX code:
 
 * nearest-point decisions use ``(xr-tr)**2 + (xi-ti)**2`` in float32 and
-  keep the first minimum on ties, so decisions are bit-identical;
+  keep the first minimum on ties, so decisions are bit-identical; on the
+  card one launch of the hand-written kernel ``csrc/nearest.cu`` makes
+  them (:func:`_nearest_sym`), on the CPU the chunked loop beside it;
 * every ``lax.dynamic_slice`` clamps its start into ``[0, len - size]``;
   the port's gathers clamp the same way.
 
@@ -33,6 +35,7 @@ import torch
 
 from ..ops import crc as crc_mod
 from ..ops import fec as fec_mod
+from ..ops import kernels
 from ..ops import modem as modem_mod
 from ..utils.bits import pack_bits, unpack_bits
 from ..utils.consts import on
@@ -287,12 +290,46 @@ def _diff_effective(x: torch.Tensor, mod: torch.Tensor):
 def _nearest_sym(x: torch.Tensor, table: torch.Tensor):
     """``(argmin_c, min_c) |x - table[c]|^2`` per point: ``x [K, n]``
     against per-row tables ``table [K, C]`` -> (int64 ``[K, n]``, float32
-    ``[K, n]``).  Distances are ``(xr-tr)**2 + (xi-ti)**2`` in float32;
-    chunks of 16 entries, ascending, first minimum on ties (``argmin``
-    within a chunk, strict ``<`` across chunks) — the JAX decision rule.
-    Counts the (point, entry) pairs compared as ``nearest_entries``."""
+    ``[K, n]``), first minimum on ties.  A CPU tensor runs
+    :func:`_nearest_sym_plain`; a CUDA tensor launches ``csrc/nearest.cu``
+    (complex64, ``1 <= C <= 256``) or raises, with the plain version's
+    results bit for bit.  Counts the (point, entry) pairs compared as
+    ``nearest_entries`` and a launch as ``nearest_launches``."""
     C = table.shape[-1]
     count("nearest_entries", x.numel() * C)
+    if x.device.type == "cpu":
+        return _nearest_sym_plain(x, table)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    if x.dtype != torch.complex64 or table.dtype != torch.complex64:
+        raise TypeError(f"points and table must be complex64, got "
+                        f"{x.dtype} and {table.dtype}")
+    if table.shape[:-1] != x.shape[:-1] or not 1 <= C <= _MAX_CONST:
+        raise ValueError(f"points {tuple(x.shape)} against a table "
+                         f"{tuple(table.shape)}: one row of 1-{_MAX_CONST} "
+                         f"entries a row of points")
+    arg = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    best = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if not x.numel():
+        return arg, best
+    n = x.shape[-1]
+    pts = x.reshape(-1, n).contiguous()
+    tab = table.reshape(-1, C).contiguous()
+    K = pts.shape[0]
+    kernels._launch("nearest_launch", pts, dict(rows=K, points=n, entries=C),
+                    pts.data_ptr(), K, n, tab.data_ptr(), C, arg.data_ptr(),
+                    best.data_ptr())
+    kernels.launches["nearest"] += 1
+    count("nearest_launches", 1)
+    return arg, best
+
+
+def _nearest_sym_plain(x: torch.Tensor, table: torch.Tensor):
+    """Plain PyTorch version of :func:`_nearest_sym`: distances
+    ``(xr-tr)**2 + (xi-ti)**2`` in float32 in chunks of 16 entries,
+    ascending, first minimum on ties (``argmin`` within a chunk, strict
+    ``<`` across chunks) — the JAX decision rule."""
+    C = table.shape[-1]
     xr, xi = x.real[..., None], x.imag[..., None]
     tr, ti = table.real[..., None, :], table.imag[..., None, :]
     best = torch.full(x.shape, 1e30, dtype=torch.float32, device=x.device)

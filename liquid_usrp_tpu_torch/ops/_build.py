@@ -59,6 +59,8 @@ _SIGNATURES = {
     "viterbi_launch": ([_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _VP], _I),
     # rows, T, S, P -> scratch bytes
     "viterbi_scratch": ([_I, _I, _I, _I], _LL),
+    # x, K, n, table, C, arg, best, stream
+    "nearest_launch": ([_VP, _I, _I, _VP, _I, _VP, _VP, _VP], _I),
 }
 
 _LIB: list = []

@@ -28,7 +28,8 @@ Each wrapper dispatches by the device of its input: a CUDA tensor launches
 the kernel (built on first use by :mod:`._build`) or raises; a CPU tensor
 runs the kernel's plain PyTorch version beside it.  Nothing falls back.
 ``launches`` counts kernel launches per wrapper (plain runs do not count),
-and also those of the payload codec's Viterbi kernel (``ops/conv.py``).
+and also those of the payload codec's Viterbi kernel (``ops/conv.py``) and
+of the nearest-point scan (``framing/payload.py``).
 
 Inputs carry any leading batch shape ``[..., len]``; each row is one
 extended detect window, as the JAX code vmaps over windows.
@@ -59,7 +60,9 @@ launches = {"detect_metric_xcorr_onepass": 0,
             "detect_metric_onepass": 0,
             "detect_metric_fused_2d": 0,
             "detect_metric_fused": 0,
-            "viterbi": 0}           # ops/conv.py::_viterbi, csrc/viterbi.cu
+            "viterbi": 0,           # ops/conv.py::_viterbi, csrc/viterbi.cu
+            "nearest": 0}           # framing/payload.py::_nearest_sym,
+                                    # csrc/nearest.cu
 
 
 # B1's launches by path (:func:`xcorr_path`), beside ``launches``

@@ -62,7 +62,9 @@ The parallel layer: a 2-rank gloo world that shares the card runs
 ``sharded_mcrx`` at detect level 1; its rows equal the single-process
 batched receiver's on the card in the detected/valid-masked fields
 (``rssi`` atol 1e-3 dB, ``evm`` 0.05 dB, ``cfo`` 1e-5), and both ranks
-launch B1 (the rank functions are in ``tests/torch_parallel_ranks.py``).
+launch B1, no other detect kernel, and the nearest-point kernel
+(``csrc/nearest.cu``; the rank functions are in
+``tests/torch_parallel_ranks.py``).
 
 The payload codec's Viterbi kernel (``csrc/viterbi.cu``) equals its plain
 version bit for bit on every trellis step: v27, v29, v39, v615, v27p34 and
@@ -1114,7 +1116,8 @@ def test_sharded_mcrx_ranks_share_the_card(cuda):
     """Two ranks on the one card, over gloo (their tensors cross through
     pinned host copies): the all-to-all receiver's rows equal the
     single-process receiver's over the same mixture, and each rank
-    launched B1."""
+    launched B1, no other detect kernel, and the decode's nearest-point
+    kernel."""
     import torch_parallel_ranks as ranks
     from liquid_usrp_tpu_torch.models.multichannel import (
         make_mcrx_batched_step, make_mctx_step)
@@ -1146,8 +1149,9 @@ def test_sharded_mcrx_ranks_share_the_card(cuda):
         assert out["backend"] == "gloo"
         assert out["device"].startswith("cuda")
         assert out["launches"]["detect_metric_xcorr_onepass"] > 0
+        assert out["launches"]["nearest"] > 0
         assert not any(v for k, v in out["launches"].items()
-                       if k != "detect_metric_xcorr_onepass")
+                       if k not in ("detect_metric_xcorr_onepass", "nearest"))
     got = outs[0]["res"]
     sync = ofdm_sync.make_sync(params, **cfg["sync"])
     rinit, rstep = make_mcrx_batched_step(N, sync, 2 * cb, cuda)

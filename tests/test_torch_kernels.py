@@ -142,7 +142,7 @@ def test_wrappers_dispatch_by_device():
     assert kernels.launches == dict.fromkeys(
         ["detect_metric_xcorr_onepass", "detect_candidates_onepass",
          "detect_metric_onepass", "detect_metric_fused_2d",
-         "detect_metric_fused", "viterbi"], 0)
+         "detect_metric_fused", "viterbi", "nearest"], 0)
     meta = x.to("meta")
     with pytest.raises(RuntimeError):
         kernels.detect_metric_xcorr_onepass(meta, tmpl, 24, 4193)
