@@ -293,8 +293,8 @@ def _nearest_sym(x: torch.Tensor, table: torch.Tensor):
     ``[K, n]``), first minimum on ties.  A CPU tensor runs
     :func:`_nearest_sym_plain`; a CUDA tensor launches ``csrc/nearest.cu``
     (complex64, ``1 <= C <= 256``) or raises, with the plain version's
-    results bit for bit.  Counts the (point, entry) pairs compared as
-    ``nearest_entries`` and a launch as ``nearest_launches``."""
+    results bit for bit, counted in ``kernels.launches["nearest"]``.
+    Counts the (point, entry) pairs compared as ``nearest_entries``."""
     C = table.shape[-1]
     count("nearest_entries", x.numel() * C)
     if x.device.type == "cpu":
@@ -320,7 +320,6 @@ def _nearest_sym(x: torch.Tensor, table: torch.Tensor):
                     pts.data_ptr(), K, n, tab.data_ptr(), C, arg.data_ptr(),
                     best.data_ptr())
     kernels.launches["nearest"] += 1
-    count("nearest_launches", 1)
     return arg, best
 
 

@@ -245,8 +245,8 @@ def _viterbi(scheme: int, bm_pat: torch.Tensor, big: int) -> torch.Tensor:
     starting at ``big`` -> decoded bits ``[B, T]`` uint8 (the last K-1 are
     the flush zeros).  A CPU tensor runs :func:`_viterbi_plain`; a CUDA
     tensor launches ``csrc/viterbi.cu`` (``bm_pat`` contiguous int32) or
-    raises.  Counts the ``T`` sequential steps as ``viterbi_steps`` and a
-    launch as ``viterbi_launches``."""
+    raises; a launch is counted in ``kernels.launches["viterbi"]``.  Counts
+    the ``T`` sequential steps as ``viterbi_steps``."""
     count("viterbi_steps", bm_pat.shape[1])
     if bm_pat.device.type == "cpu":
         return _viterbi_plain(scheme, bm_pat, big)
@@ -271,7 +271,6 @@ def _viterbi(scheme: int, bm_pat: torch.Tensor, big: int) -> torch.Tensor:
                     B, T, S, P, on(_butterflies(scheme), dev).data_ptr(),
                     big, kernels._ptr(scratch), bits.data_ptr())
     kernels.launches["viterbi"] += 1
-    count("viterbi_launches", 1)
     return bits
 
 

@@ -19,12 +19,7 @@ package's ``shard_map`` bodies, over the dims of a ``('time', 'channel')``
 Complex tensors travel as their float32 pairs.  The backend decides the
 staging up front: under gloo a CUDA tensor goes through a pinned host copy
 (gloo's point-to-point and all-to-all take host tensors), under NCCL it
-stays on the card.  ``stats`` counts the calls and the host wall seconds
-spent in them, waits for other ranks included.  A call that waits for the
-card on the host (gloo's staging copies, the gather's copy to the host)
-waits for the card's queued work before its clock starts; an NCCL
-point-to-point or all-to-all counts its enqueue and its wait, not the
-transfer the card does later.
+stays on the card.
 
 Tracing (``utils/profiling.py``): every call opens one ``rx.exchange``
 span (an all-to-all two, its launch and its wait), and counts under
@@ -35,8 +30,6 @@ it reaches.  Both only while a profiler records.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -44,29 +37,8 @@ import torch.distributed as dist
 from ..utils.profiling import count, span
 
 __all__ = ["dim_size", "ppermute", "all_to_all", "gather_tree",
-           "gather_first", "stats", "reset_stats"]
+           "gather_first"]
 EXCHANGE = "rx.exchange"
-
-stats = {"calls": 0, "seconds": 0.0}
-
-
-def reset_stats() -> None:
-    stats.update(calls=0, seconds=0.0)
-
-
-def _start(x: torch.Tensor, host_wait: bool = False) -> float:
-    """The clock at a collective's start.  A collective that waits for the
-    card on the host (gloo's staging copy of a card's tensor, or a result
-    copied to the host: ``host_wait``) waits for the card's queued work
-    anyway: wait first, so that work is not counted as the collective's."""
-    if x.is_cuda and (host_wait or _host_staged(x)):
-        torch.cuda.synchronize(x.device)
-    return time.perf_counter()
-
-
-def _account(t0: float) -> None:
-    stats["calls"] += 1
-    stats["seconds"] += time.perf_counter() - t0
 
 
 def dim_size(mesh, name: str) -> int:
@@ -124,7 +96,6 @@ def ppermute(x: torch.Tensor, mesh, dims, pairs) -> torch.Tensor:
     if me in src and me in dst:              # a pair from a rank to itself
         return x.clone()
     with span(EXCHANGE):
-        t0 = _start(x)
         send = _wire(x)
         count("exchange_bytes", _nbytes(send) * len(dst))
         recv = torch.zeros_like(send) if src else None
@@ -134,25 +105,20 @@ def ppermute(x: torch.Tensor, mesh, dims, pairs) -> torch.Tensor:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
         out = _unwire(recv, x) if src else torch.zeros_like(x)
-        _account(t0)
     return out
 
 
 class _Pending:
     """An all-to-all in flight: :meth:`wait` gives its result."""
 
-    def __init__(self, work, recv, like, concat_axis, t0):
+    def __init__(self, work, recv, like, concat_axis):
         self._work, self._recv, self._like = work, recv, like
-        self._axis, self._launch = concat_axis, time.perf_counter() - t0
+        self._axis = concat_axis
 
     def wait(self) -> torch.Tensor:
         with span(EXCHANGE):
-            t0 = time.perf_counter()
             self._work.wait()
-            out = _unwire(self._recv, self._like).movedim(0, self._axis)
-            stats["seconds"] += self._launch
-            _account(t0)
-        return out
+            return _unwire(self._recv, self._like).movedim(0, self._axis)
 
 
 def all_to_all(x: torch.Tensor, mesh, dim: str, split_axis: int,
@@ -168,7 +134,6 @@ def all_to_all(x: torch.Tensor, mesh, dim: str, split_axis: int,
         raise ValueError(f"split axis of size {x.shape[split_axis]}, "
                          f"dim {dim!r} has {n} ranks")
     with span(EXCHANGE):
-        t0 = _start(x)
         like = x.movedim(split_axis, 0)
         send = _wire(like)
         count("exchange_bytes", _nbytes(send) // n * (n - 1))
@@ -176,7 +141,7 @@ def all_to_all(x: torch.Tensor, mesh, dim: str, split_axis: int,
         work = dist.all_to_all_single(recv, send,
                                       group=mesh.get_group(dim),
                                       async_op=True)
-        pending = _Pending(work, recv, like, concat_axis, t0)
+        pending = _Pending(work, recv, like, concat_axis)
     return pending if async_op else pending.wait()
 
 
@@ -200,7 +165,6 @@ def gather_tree(leaves, mesh, dims) -> list[np.ndarray]:
     leaves = list(leaves)
     with span(EXCHANGE):
         buf = _pack(leaves)
-        t0 = _start(buf, host_wait=True)
         wire = _wire(buf)
         # the buffer reaches every other rank along the dims once
         count("exchange_bytes", _nbytes(wire) * (int(np.prod(
@@ -210,7 +174,6 @@ def gather_tree(leaves, mesh, dims) -> list[np.ndarray]:
             dist.all_gather(parts, wire, group=mesh.get_group(d))
             wire = torch.stack(parts)
         host = wire.cpu().numpy()
-        _account(t0)
     lead = host.shape[:-1]
     out, off = [], 0
     for v in leaves:
@@ -234,7 +197,6 @@ def gather_first(leaves, mesh, dims) -> list[torch.Tensor] | None:
     leaves = list(leaves)
     with span(EXCHANGE):
         buf = _pack(leaves)
-        t0 = _start(buf)
         wire, sent = _wire(buf), 0
         for d in reversed(dims):
             ranks, me = _axis_ranks(mesh, (d,))
@@ -249,7 +211,6 @@ def gather_first(leaves, mesh, dims) -> list[torch.Tensor] | None:
         count("exchange_bytes", sent)
         if wire is not None:
             wire = _unwire(wire, buf)
-        _account(t0)
     if wire is None:
         return None
     lead = wire.shape[:-1]

@@ -27,8 +27,8 @@ card's maximum SM clock.  The phases:
   arguments.
 
 The instrumented kernels are slower than the real ones by the counter
-reads; compare phases with each other, not with ``chip_smoke.py``'s
-device times.
+reads; compare phases with each other, not with
+``scripts/kernel_turns.py``'s device times.
 
     python3 scripts/kernel_phases.py [--csrc DIR]
 """

@@ -1,46 +1,32 @@
-"""Profile of the PyTorch/CUDA port's four paths on one CUDA device.
+"""Profile of the PyTorch/CUDA port's flexframe, GMSK and 802.11a receivers
+on one CUDA device.
 
-Builds the bench mixture as ``chip_smoke.py`` does (N=4, M=48, 400-byte
-payloads, ``block_size=65536``, ``n_blocks=2``), the single-channel stream
-of ``chip_smoke.py`` (``ofdmflexframe_tx`` defaults, 40 frames) and its
-flexframe stream (``flexframe_tx`` defaults, 40 frames of 1024 bytes,
-resampled at 0.5 as ``flexframe_rx`` does), and measures:
+The OFDM receivers' stages are the benchmark's ``rx.*`` spans
+(``python3 rxbench/run.py --trace 1``), and a kernel's own device time is
+``scripts/kernel_turns.py``'s.  The other receivers have no spans yet, so
+this script splits their dispatches with CUDA events and syncs, on the
+streams of their TX apps at the defaults, and measures:
 
-* per ported kernel, at its path's shapes (B1/B2 on the multichannel
-  windows, B3/B4/B5 on the single-channel path's first 8 windows): the
-  wrapper's time (CUDA events over back-to-back calls), the host time to
-  enqueue one call, the kernel's own device time and the device kernels
-  per call (``torch.profiler``), and the kernel's bound (its bytes over
-  the HBM rate or its float32 operations over the float32 peak, as
-  ``chip_smoke.py`` counts them) with the share of it the kernel reaches;
-* per detect level (``use_pallas`` 0, 1, 2) of the multichannel path: the
-  host self time a step of each stage's span in the profiled steps
-  (``rx.front_end``, ``rx.detect``, ``rx.decode`` less its ``rx.codec``,
-  and ``rx.codec``; ``rxbench/spans.py``), the step wall time, the device
-  busy time and its share of the wall, device kernels per step, peak
-  device memory and the top device kernels;
-* per detect config of the single-channel path: the same for one 8-block
-  ``sync_blocks_batched`` dispatch with its results copied to the host;
-* for the flexframe receiver: the same for one 8-block
-  ``flex_sync_blocks_batched`` dispatch (blocks 16-23, ``chip_smoke.py``'s
-  timed dispatch), with its stage times (front end, candidate decode,
+* for the flexframe receiver (``flexframe_tx``: 40 frames of 1,024 bytes,
+  resampled at 0.5 as ``flexframe_rx`` does): one 8-block
+  ``flex_sync_blocks_batched`` dispatch (blocks 16-23) with its results
+  copied to the host, its stage times (front end, candidate decode,
   results and host copy);
-* for the GMSK receiver, on ``chip_smoke.py``'s GMSK streams (the
-  ``gmskframe_tx`` defaults, 40 frames; and with a v27 payload through the
-  ``--conv`` sync): the same for one 8-block ``gmsk_sync_blocks_batched``
-  dispatch (blocks 8-15), its stages split into front end, candidate
-  decode (timing, CFO, phase tracking, header), payload decode (demap and
-  FEC: the Viterbi under ``--conv``) and results with the host copy; the
-  Viterbi's own stage inside that dispatch (``chip_smoke.viterbi_ms``);
-  and the Viterbi's peak device memory at the largest input a dispatch
-  gives it (v29, 32 rows at the ``fec1`` stage's budget);
+* for the GMSK receiver (``gmskframe_tx``: 40 frames; and with a v27
+  payload through the ``--conv`` sync): one 8-block
+  ``gmsk_sync_blocks_batched`` dispatch (blocks 8-15), its stages split
+  into front end, candidate decode (timing, CFO, phase tracking, header),
+  payload decode (demap and FEC: the Viterbi under ``--conv``) and results
+  with the host copy; and the Viterbi's peak device memory at the largest
+  input a dispatch gives it (v29, 32 rows at the ``fec1`` stage's budget);
 * for the 802.11a receiver, on ``wlanframe_tx`` streams (rate 6, 200 and
-  1,500-byte PSDUs): the same for one detecting block at ``-p 256`` and
-  ``-p 1500``, its stages split into detect, the SIGNAL and the DATA soft
-  Viterbi, and the rest of the candidate decode with the host copy.
+  1,500-byte PSDUs): one detecting block at ``-p 256`` and ``-p 1500``,
+  its stages split into detect, the SIGNAL and the DATA soft Viterbi, and
+  the rest of the candidate decode with the host copy;
 
-Steps after the first feed the same chunk from the carried state; their
-results are not checked (``chip_smoke.py`` checks decoding).  Prints one
+each with the wall time of whole dispatches, the device busy time and its
+share of the wall, device kernels, peak device memory and the top device
+kernels.  Decoding is checked by the ``gpu`` tests, not here.  Prints one
 JSON line per measurement and writes them all to ``--out``.
 
     python3 scripts/profile_port.py [--out build/profile_port.json]
@@ -48,7 +34,10 @@ JSON line per measurement and writes them all to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import subprocess
 import sys
 import tempfile
 import time
@@ -58,8 +47,59 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-import chip_smoke as cs  # noqa: E402
+# the flexframe and GMSK apps' defaults and their profiled dispatches
+FF_BLOCK, FF_BATCH, FF_MAX_PAYLOAD, FF_MAX_FRAMES = 8192, 8, 2048, 4
+FF_FRAMES, FF_PAYLOAD, FF_RX_RATE, FF_DISPATCH = 40, 1024, 0.5, 2
+GM_BLOCK, GM_MAX_PAYLOAD, GM_MAX_FRAMES, GM_DISPATCH = 8192, 1024, 4, 1
+GM_FRAMES, GM_PAYLOAD = 40, 200
+WLAN_PSDU, WLAN_MTU = 200, 1500
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run_app(main_fn, argv) -> None:
+    with contextlib.redirect_stdout(io.StringIO()):
+        if main_fn(argv) != 0:
+            raise AssertionError(f"{argv}: nonzero exit")
+
+
+def dispatch_input(sync, state_cls, stream, first_block, dev):
+    """The state (a ``state_cls``) a flexframe or GMSK sync carries into
+    blocks ``first_block`` .. of ``stream`` and those 8 blocks, on
+    ``dev``."""
+    bs = sync.block_size
+    full = np.zeros(sync.overlap + (first_block + FF_BATCH) * bs,
+                    np.complex64)
+    body = stream[:(first_block + FF_BATCH) * bs]
+    full[sync.overlap:sync.overlap + len(body)] = body
+    exts = torch.as_tensor(full).unfold(0, sync.overlap + bs, bs)[
+        first_block:]
+    st = state_cls(tail=exts[0, :sync.overlap].to(dev),
+             base=torch.tensor(first_block * bs - sync.overlap,
+                               dtype=torch.int32, device=dev))
+    return st, exts[:, sync.overlap:].contiguous().to(dev)
+
+
+def first_detecting_block(stream, sync, dev):
+    """(state before, block) of the first block of ``stream`` whose sync
+    step detects a frame, on ``dev``."""
+    from liquid_usrp_tpu_torch.framing import wlan
+    bs = sync.block_size
+    x = np.zeros((-(-len(stream) // bs) + sync.overlap // bs + 1) * bs,
+                 np.complex64)
+    x[:len(stream)] = stream
+    state = wlan.wlan_sync_init(sync, dev)
+    for blk in torch.as_tensor(x.reshape(-1, bs), device=dev):
+        new, res = wlan.wlan_sync_block(sync, state, blk)
+        if bool(res.psdu_valid.any()):
+            return state, blk
+        state = new
+    raise AssertionError("no detecting block")
 
 
 def _device_us(e) -> float:
@@ -93,185 +133,21 @@ def _profile(fn, n: int):
     return _device_events(_traced(fn, n))
 
 
-def _stage_ms(prof, steps: int) -> dict:
-    """Host self time a step of each stage's ``rx.*`` span."""
-    from rxbench import spans
-    from rxbench.profiling import Op, Trace
-    host = [Op(e.name(), e.start_ns() * 1e-3, e.end_ns() * 1e-3)
-            for e in prof.profiler.kineto_results.events()
-            if e.name().startswith(spans.PREFIX)]
-    trace = Trace(0.0, 0.0, steps, [], host)
-    return {stage: spans.self_ms_per_dispatch(trace, "rx." + stage)
-            for stage in ("front_end", "detect", "decode", "codec")}
-
-
-def profile_kernels(s1, blocks, dev):
-    """Wrapper time vs the kernel's own device time, per ported kernel."""
-    from liquid_usrp_tpu_torch.framing import ofdm_sync
-    from liquid_usrp_tpu_torch.models.multichannel import Mcrx
-    from liquid_usrp_tpu_torch.ops import kernels
-    rx = Mcrx(cs.N, s1, cs.N_BLOCKS, dev)
-    st = rx.init_state()
-    _, _, chans = rx.front_end(st, blocks)
-    _, exts = ofdm_sync.extended_windows(s1, st.syncs.tail, chans)
-    tmpl = rx.tables.xc_tmpl
-    span = ofdm_sync._xc_span(len(tmpl))
-    d, L = cs.M // 4, 2 * cs.M - cs.M // 4
-    calls = {
-        "detect_metric_xcorr_onepass": (
-            "xcorr_metric_kernel",
-            lambda: kernels.detect_metric_xcorr_onepass(
-                exts, tmpl, span, s1.block_size + 2 * cs.M + 1)),
-        "detect_candidates_onepass": (
-            "detect_candidates_kernel",
-            lambda: kernels.detect_candidates_onepass(
-                exts, d, L, cs.M, s1.block_size, s1.threshold,
-                s1.max_frames)),
-    }
-    rows, length = exts.shape
-    work = {
-        "detect_metric_xcorr_onepass": cs.work(
-            "detect_metric_xcorr_onepass", rows, length,
-            n_metric=s1.block_size + 2 * cs.M + 1, tmpl=tmpl, span=span),
-        "detect_candidates_onepass": cs.work(
-            "detect_candidates_onepass", rows, length, span=L, lag=d)}
-    return _profile_calls(calls, work)
-
-
-def profile_sc_kernels(exts):
-    """B3, B4 and B5 on the single-channel path's first 8 windows."""
-    from liquid_usrp_tpu_torch.ops import kernels
-    lag = cs.M // 4
-    span = 2 * cs.M - lag
-    calls = {name: (kname, lambda f=getattr(kernels, name): f(exts, lag,
-                                                                span))
-             for name, kname in (
-                 ("detect_metric_onepass", "autocorr_metric_kernel"),
-                 ("detect_metric_fused_2d", "autocorr_prefix_kernel"),
-                 ("detect_metric_fused", "autocorr_prefix_kernel"))}
-    return _profile_calls(calls, {name: cs.work(name, *exts.shape,
-                                                span=span, lag=lag)
-                                  for name in calls})
-
-
-def _profile_calls(calls, work):
-    """Per kernel: wrapper and host times, device time alone, and the bound
-    (``chip_smoke.work`` bytes and operations at the published peaks) with
-    the share of it the kernel reaches."""
-    out = {}
-    for name, (kname, fn) in calls.items():
-        wrapper_ms = cs.cuda_ms(fn, 100)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 10.0
-        torch.cuda.synchronize()
-        ev = _profile(fn, 20)
-        kern = [e for e in ev if kname in e.key]
-        dev_us = sum(_device_us(e) for e in kern) / max(
-            1, sum(e.count for e in kern))
-        nbytes, flops = work[name]
-        bound_ms, bound_by = cs.bound(nbytes, flops)
-        out[name] = dict(
-            wrapper_ms=wrapper_ms, host_enqueue_ms=host_ms,
-            kernel_device_us=dev_us,
-            all_device_us_per_call=sum(_device_us(e) for e in ev) / 20,
-            device_kernels_per_call=sum(e.count for e in ev) / 20,
-            bytes=nbytes, flops=flops, bound_us=bound_ms * 1e3,
-            bound_by=bound_by, share_of_bound=bound_ms * 1e3 / dev_us)
-        print(name, json.dumps(out[name]), flush=True)
-    return out
-
-
-def profile_level(level, params, blocks, dev, wall_steps=5, prof_steps=3):
-    """Stage times, wall time, busy share and top kernels at one level."""
-    from liquid_usrp_tpu_torch.framing import ofdm_sync
-    from liquid_usrp_tpu_torch.models.multichannel import Mcrx
-    sync = ofdm_sync.make_sync(params, block_size=cs.BLOCK,
-                               max_payload=cs.MAX_PAYLOAD,
-                               max_frames=cs.MAX_FRAMES, use_pallas=level)
-    rx = Mcrx(cs.N, sync, cs.N_BLOCKS, dev)
-    st = rx.init_state()
-    for _ in range(2):
-        st, _ = rx.step(st, blocks)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(wall_steps):
-        st, _ = rx.step(st, blocks)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / wall_steps
-    peak = torch.cuda.max_memory_allocated()
-    state = [st]
-
-    def one():
-        state[0], _ = rx.step(state[0], blocks)
-
-    prof = _traced(one, prof_steps)
-    kev = _device_events(prof)
-    busy_ms = sum(_device_us(e) for e in kev) / prof_steps / 1e3
-    top = sorted(kev, key=_device_us, reverse=True)[:8]
-    rec = dict(stage_ms=_stage_ms(prof, prof_steps), step_wall_ms=wall_ms,
-               device_busy_ms_per_step=busy_ms,
-               busy_share_of_wall=busy_ms / wall_ms,
-               kernels_per_step=sum(e.count for e in kev) / prof_steps,
-               peak_mem_bytes=peak,
-               top=[(e.key[:90], _device_us(e) / prof_steps / 1e3,
-                     e.count / prof_steps) for e in top])
-    print("level", level, json.dumps(rec), flush=True)
-    return rec
-
-
-def profile_sc_config(config, params, stream, dev, wall_calls=5,
-                      prof_calls=3):
-    """One 8-block dispatch of the single-channel path at one detect
-    config, from the initial state, results copied to the host: wall time,
-    device busy time and share, kernels and the top device kernels."""
-    from liquid_usrp_tpu_torch.framing import ofdm_sync
-    from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
-    xcorr, level = config
-    sync = ofdm_sync.make_sync(params, block_size=cs.SC_BLOCK,
-                               max_payload=cs.SC_MAX_PAYLOAD,
-                               use_pallas=level, xcorr_detect=xcorr)
-    blocks = torch.as_tensor(stream[:cs.SC_BATCH * cs.SC_BLOCK].reshape(
-        cs.SC_BATCH, cs.SC_BLOCK), device=dev)
-    st0 = ofdm_sync.sync_init(sync, dev)
-
-    def one():
-        _to_host(ofdm_sync.sync_blocks_batched(sync, st0, blocks)[1])
-
-    for _ in range(2):
-        one()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(wall_calls):
-        one()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / wall_calls
-    kev = _profile(one, prof_calls)
-    busy_ms = sum(_device_us(e) for e in kev) / prof_calls / 1e3
-    top = sorted(kev, key=_device_us, reverse=True)[:8]
-    rec = dict(dispatch_wall_ms=wall_ms, device_busy_ms=busy_ms,
-               busy_share_of_wall=busy_ms / wall_ms,
-               kernels_per_dispatch=sum(e.count for e in kev) / prof_calls,
-               top=[(e.key[:90], _device_us(e) / prof_calls / 1e3,
-                     e.count / prof_calls) for e in top])
-    print("single channel", config, json.dumps(rec), flush=True)
-    return rec
-
-
 def profile_ff_dispatch(rx_stream, dev, stage_calls=5, wall_calls=5,
                         prof_calls=3):
-    """One 8-block dispatch of the flexframe receiver (``chip_smoke.py``'s
-    timed dispatch) with its results copied to the host: stage times
-    (front end, candidate decode, results and host copy; CUDA events with
-    a sync between them), wall time, device busy time and share, kernels,
-    peak memory and the top device kernels."""
+    """One 8-block dispatch of the flexframe receiver (blocks 16-23) with
+    its results copied to the host: stage times (front end, candidate
+    decode, results and host copy; CUDA events with a sync between them),
+    wall time, device busy time and share, kernels, peak memory and the top
+    device kernels."""
+    from liquid_usrp_tpu_torch.framing import flexframe as ff
     from liquid_usrp_tpu_torch.framing import flexframe_sync as fs
     from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
-    sync = cs.ff_sync()
-    st0, blocks = cs.ff_dispatch_input(sync, rx_stream, dev)
+    sync = fs.make_flex_sync(ff.make_flex_params(), block_size=FF_BLOCK,
+                             max_payload=FF_MAX_PAYLOAD,
+                             max_frames=FF_MAX_FRAMES)
+    st0, blocks = dispatch_input(sync, fs.FlexSyncState, rx_stream,
+                                 FF_DISPATCH * FF_BATCH, dev)
     n_blocks, bs = blocks.shape
     K = sync.max_frames
 
@@ -327,9 +203,8 @@ def profile_ff_dispatch(rx_stream, dev, stage_calls=5, wall_calls=5,
 
 def profile_gm_dispatch(stream, dev, conv, stage_calls=3, wall_calls=3,
                         prof_calls=2):
-    """One 8-block dispatch of the GMSK receiver (``chip_smoke.py``'s
-    timed dispatch) with its results copied to the host: stage times
-    (front end, candidate decode, payload decode, results and host copy;
+    """One 8-block dispatch of the GMSK receiver (blocks 8-15) with its
+    results copied to the host: stage times (front end, candidate decode, payload decode, results and host copy;
     CUDA events with a sync after each, so that each stage's time holds
     its own host launches and nothing of the next), their sum, the wall
     time of whole dispatches (a loop of its own), device busy time and
@@ -338,8 +213,11 @@ def profile_gm_dispatch(stream, dev, conv, stage_calls=3, wall_calls=3,
     from liquid_usrp_tpu_torch.framing import payload as payload_codec
     from liquid_usrp_tpu_torch.models.ofdmtxrx import _to_host
     from liquid_usrp_tpu_torch.ops import modem
-    sync = cs.gm_sync(conv)
-    st0, blocks = cs.gm_dispatch_input(sync, stream, dev)
+    sync = gf.make_gmsk_sync(gf.make_gmsk_params(), block_size=GM_BLOCK,
+                             max_payload=GM_MAX_PAYLOAD,
+                             max_frames=GM_MAX_FRAMES, enable_conv=conv)
+    st0, blocks = dispatch_input(sync, gf.GmskSyncState, stream,
+                                 GM_DISPATCH * FF_BATCH, dev)
     n_blocks, bs = blocks.shape
     K = sync.max_frames
 
@@ -401,7 +279,6 @@ def profile_gm_dispatch(stream, dev, conv, stage_calls=3, wall_calls=3,
                top=[(e.key[:90], _device_us(e) / prof_calls / 1e3,
                      e.count / prof_calls) for e in top])
     if conv:
-        rec["viterbi_ms"] = cs.viterbi_ms(sync, stream, dev, cs.card())
         rec["viterbi_v29_memory"] = profile_viterbi_memory(sync, dev)
     print("GMSK dispatch", "--conv" if conv else "", json.dumps(rec),
           flush=True)
@@ -448,7 +325,7 @@ def profile_wlan_block(max_psdu, stream, dev, calls=3, prof_calls=1):
     from liquid_usrp_tpu_torch.framing import wlan
     from liquid_usrp_tpu_torch.ops.corr import find_candidates
     sync = wlan.make_wlan_sync(max_psdu=max_psdu)
-    st0, blk = cs.first_detecting_block(stream, sync, dev)
+    st0, blk = first_detecting_block(stream, sync, dev)
 
     def one():
         _, res = wlan.wlan_sync_block(sync, st0, blk)
@@ -519,49 +396,35 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
-    from liquid_usrp_tpu_torch.apps import wlanframe_tx
-    from liquid_usrp_tpu_torch.framing import ofdm, ofdm_sync
+    sys.path.insert(0, str(ROOT))
+    from liquid_usrp_tpu_torch.apps import (flexframe_tx, gmskframe_tx,
+                                            wlanframe_tx)
+    from liquid_usrp_tpu_torch.apps.common import resample_stream
     from liquid_usrp_tpu_torch.io.streams import read_iq
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    out = {"card": cs.card()}
+    out = {"card": card()}
     print(out["card"], flush=True)
-    params = ofdm.make_ofdm_params(cs.M, cs.CP, cs.TAPER)
-    s1 = ofdm_sync.make_sync(params, block_size=cs.BLOCK,
-                             max_payload=cs.MAX_PAYLOAD,
-                             max_frames=cs.MAX_FRAMES, use_pallas=1)
-    mixture, _ = cs.build_mixture(params, ofdm.default_props(),
-                                  cs.BLOCK * cs.N_BLOCKS,
-                                  s1.overlap + 8 * cs.M, dev)
-    nrng = np.random.default_rng(1)
-    noise = (nrng.normal(size=mixture.shape) +
-             1j * nrng.normal(size=mixture.shape)).astype(np.complex64)
-    blocks = torch.as_tensor((mixture + 0.01 * noise).reshape(-1),
-                             device=dev)
     with tempfile.TemporaryDirectory() as tmpdir:
-        stream, _ = cs.sc_transmit(str(Path(tmpdir) / "sc.iq"))
-        _, ff_stream = cs.ff_transmit(str(Path(tmpdir) / "ff.iq"), dev)
-        gm_stream = cs.gm_transmit(str(Path(tmpdir) / "gm.iq"))
-        gm_conv_stream = cs.gm_transmit(str(Path(tmpdir) / "gmc.iq"), "-c",
-                                        "v27", "-k", "none")
-        wlan_streams = {}
-        for p in (cs.WLAN_PSDU, cs.WLAN_MTU):
-            f = str(Path(tmpdir) / f"w{p}.iq")
-            cs.run_app(wlanframe_tx.main, ["-o", f, "-N", "2", "-P", str(p)])
-            wlan_streams[p] = read_iq(f)
-    out["kernels"] = profile_kernels(s1, blocks, dev)
-    out["sc_kernels"] = profile_sc_kernels(cs.sc_windows(params, stream,
-                                                         dev))
-    out["levels"] = {level: profile_level(level, params, blocks, dev)
-                     for level in (0, 1, 2)}
-    out["sc_configs"] = {str(c): profile_sc_config(c, params, stream, dev)
-                         for c in cs.SC_CONFIGS}
+        def tx(main_fn, name, *argv):
+            f = str(Path(tmpdir) / name)
+            run_app(main_fn.main, ["-o", f, *argv])
+            return read_iq(f)
+        ff_stream = resample_stream(tx(flexframe_tx, "ff.iq", "-N",
+                                       str(FF_FRAMES), "-P", str(FF_PAYLOAD),
+                                       "-s", "42"), FF_RX_RATE, dev)
+        gm = ("-N", str(GM_FRAMES), "-P", str(GM_PAYLOAD), "-s", "42")
+        gm_stream = tx(gmskframe_tx, "gm.iq", *gm)
+        gm_conv_stream = tx(gmskframe_tx, "gmc.iq", *gm, "-c", "v27", "-k",
+                            "none")
+        wlan_streams = {p: tx(wlanframe_tx, f"w{p}.iq", "-N", "2", "-P",
+                              str(p)) for p in (WLAN_PSDU, WLAN_MTU)}
     out["flexframe_dispatch"] = profile_ff_dispatch(ff_stream, dev)
     out["gmsk_dispatch"] = profile_gm_dispatch(gm_stream, dev, False)
     out["gmsk_conv_dispatch"] = profile_gm_dispatch(gm_conv_stream, dev,
                                                     True)
     out["wlan_block"] = {p: profile_wlan_block(
-        {cs.WLAN_PSDU: 256}.get(p, p), wlan_streams[p], dev)
+        {WLAN_PSDU: 256}.get(p, p), wlan_streams[p], dev)
         for p in wlan_streams}
     path = Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -3,10 +3,9 @@
 Traces B1 at M=48 (8 rows of 16,584 samples) and B2 at M=512 (8 rows of
 101,760 samples, the wrapper launches two kernels) over windows of 100
 wrapper calls, in fresh processes, three ways: B2 with nothing before the
-calls (``bare``), with a spin kernel first (``spin``, as ``chip_smoke.py``
-opened its windows before), and with 16 spin kernels first (``spins``,
-as ``chip_smoke.py``'s ``open_window`` does now: a loss of the first
-records falls on them).  B1's ten windows (``b1``) open with one spin
+calls (``bare``), with a spin kernel first (``spin``), and with 16 spin
+kernels first (``spins``, as ``rxbench/profiling.py``'s ``open_window``
+does: a loss of the first records falls on them).  B1's ten windows (``b1``) open with one spin
 kernel.  For a window that did not show all 100 launches of
 every kernel it prints the counts, whether the spin kernel's record was
 there, and the start of the first kernel record after the trace's start.

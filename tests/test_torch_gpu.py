@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  This
-file imports no JAX, so it also runs where JAX is not installed:
+file imports no JAX, so it also runs where JAX is not installed, in the
+card's one suite:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py \
-        tests/test_torch_robustness.py
+        tests/test_torch_gpu_apps.py tests/test_torch_nearest.py \
+        tests/test_torch_kernel_paths.py tests/test_torch_robustness.py
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Tolerances: B1 max abs difference <= 1e-4; B2 ``detected`` equal, ``vals``

@@ -3,8 +3,8 @@ B3's window-sum path (``csrc/autocorr_metric.cu``) and of B2's
 (``csrc/detect_candidates.cu``, both through ``csrc/window_sums.cuh``), on
 the CPU.
 
-The CUDA kernels run only on the card (``tests/test_torch_gpu.py``,
-``chip_smoke.py``).  Here a NumPy float32 model of each kernel's own
+The CUDA kernels run only on the card (``tests/test_torch_gpu.py``).
+Here a NumPy float32 model of each kernel's own
 order of work (the fold's lanes, windows and partial sums from the
 wrapper's geometry; B3's chunked van Herk / Gil-Werman sums) is held to
 the kernel's plain version, and the wrapper's choice of path is checked:

@@ -4,7 +4,7 @@ On the CPU each wrapper runs its kernel's plain PyTorch version; these
 tests hold that plain version against the JAX Pallas kernel run in
 interpret mode (as the JAX suite runs it on CPU) and against the JAX XLA
 path.  The CUDA kernels themselves are compared with the plain versions on
-the card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+the card by ``tests/test_torch_gpu.py``.
 
 Tolerances: B1 plain vs JAX interpret atol 1e-5 (at M=48, and on a short
 zero-padded row); B1 plain vs the JAX FFT

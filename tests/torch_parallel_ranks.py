@@ -1,5 +1,6 @@
 """Rank functions of the parallel-layer tests
-(``tests/test_torch_parallel*.py``, ``tests/test_torch_sharded_step.py``).
+(``tests/test_torch_parallel*.py``, ``tests/test_torch_sharded_step.py``,
+and the card's ``tests/test_torch_gpu*.py``).
 
 A world spawned by ``liquid_usrp_tpu_torch.parallel.distributed.spawn``
 imports the module of its rank function in each child, so these live here,
@@ -168,7 +169,7 @@ def receivers(rank, cfg, mixture, planes, piped, streams):
 
 
 # ---------------------------------------------------------------------------
-# test_torch_gpu.py: ranks that share the card
+# test_torch_gpu.py and test_torch_gpu_apps.py: ranks on the card
 # ---------------------------------------------------------------------------
 
 def card_sharded_mcrx(rank, cfg, mixture):
@@ -185,6 +186,64 @@ def card_sharded_mcrx(rank, cfg, mixture):
     return {"res": _np(res), "launches": dict(kernels.launches),
             "device": str(distributed.local_device()),
             "backend": dist.get_backend()}
+
+
+def card_world(rank, inp):
+    """A 2x2 world on the card (and a 1-D ``time`` mesh of the same
+    ranks): ``sharded_mcrx`` at level 1 with one block a chunk,
+    ``make_sharded_mcrx`` at level 2 with two, ``sharded_mcrx`` with
+    ``n_steps=2``, ``make_sharded_mctx``, and ``make_time_sharded_sync``
+    over each stream of ``inp["time"]`` with its sync.  Returns this
+    rank's backend, device and kernel launches a run, and (rank 0) the
+    global results."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    m = make_sdr_mesh()
+    tm = init_device_mesh("cuda" if dist.get_backend() == "nccl" else "cpu",
+                          (dist.get_world_size(),), mesh_dim_names=("time",))
+    out = {"launches": {}, "res": {}, "backend": dist.get_backend(),
+           "device": str(distributed.local_device())}
+
+    def once(name, run, mesh, x):
+        kernels.reset_launch_counts()
+        res = run(stream.shard_for(mesh, x, run.in_spec))
+        torch.cuda.synchronize()
+        out["launches"][name] = dict(kernels.launches)
+        if rank == 0:
+            out["res"][name] = (res if isinstance(res, np.ndarray)
+                                else _np(res))
+
+    def sync(level):
+        return ofdm_sync.make_sync(ofdm.make_ofdm_params(48, 6, 4),
+                                   use_pallas=level, **inp["sync"])
+
+    N, mix = inp["N"], inp["mix"]
+    once("a2a", stream.sharded_mcrx(m, N, sync(1), 1), m, mix)
+    once("dup", stream.make_sharded_mcrx(m, N, sync(2), 2), m, mix)
+    once("piped", stream.sharded_mcrx(m, N, sync(1), 1, n_steps=2), m,
+         np.concatenate([mix, inp["flush"], inp["flush"]]).reshape(2, -1))
+    once("mctx", stream.make_sharded_mctx(
+        m, N, inp["tx_streams"].shape[1] // dist.get_world_size()), m,
+        inp["tx_streams"])
+    for name, (sy, x, cb) in inp["time"].items():
+        once(f"time_{name}", stream.make_time_sharded_sync(tm, sy, cb), tm,
+             x)
+    return out
+
+
+def card_nccl(rank, inp):
+    """``sharded_mcrx`` (level 1, four blocks a chunk) over ``inp["mix"]``
+    in a world on the card: the backend, the global results and this
+    rank's kernel launches."""
+    from liquid_usrp_tpu_torch.ops import kernels
+    m = make_sdr_mesh()
+    sync = ofdm_sync.make_sync(ofdm.make_ofdm_params(48, 6, 4),
+                               use_pallas=1, **inp["sync"])
+    run = stream.sharded_mcrx(m, inp["N"], sync, 4)
+    kernels.reset_launch_counts()
+    res = run(stream.shard_for(m, inp["mix"], run.in_spec))
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "res": _np(res),
+            "launches": dict(kernels.launches)}
 
 
 # ---------------------------------------------------------------------------
